@@ -1,4 +1,4 @@
-"""Synthetic graph families used by tests and benchmarks.
+"""Synthetic graph and hypergraph families used by tests and benchmarks.
 
 Two regimes mirror the paper's preset split: *mesh-like* (grids, tori,
 geometric graphs — what fast/eco/strong target) and *social/web-like*
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.csr import Graph
+from repro_torch.core.hypergraph.container import Hypergraph
 
 
 def grid2d(rows: int, cols: int, wrap: bool = False, seed: int = 0) -> Graph:
@@ -137,3 +138,108 @@ def weighted_grid(rows: int, cols: int, seed: int = 0, wmax: int = 10) -> Graph:
     uniq, inv = np.unique(key, return_inverse=True)
     w_und = rng.integers(1, wmax + 1, size=len(uniq))
     return Graph(g.xadj, g.adjncy, g.vwgt, w_und[inv].astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# hypergraph families (repro_torch.core.hypergraph workloads)
+# ---------------------------------------------------------------------------
+
+def random_hypergraph(n: int, m: int, min_pins: int = 2, max_pins: int = 8,
+                      seed: int = 0, wmax: int = 1):
+    """Uniform random hypergraph: each net draws 2..max_pins distinct pins."""
+    rng = np.random.default_rng(seed)
+    nets = []
+    for _ in range(m):
+        sz = int(rng.integers(min_pins, max_pins + 1))
+        nets.append(rng.choice(n, size=min(sz, n), replace=False))
+    ewgt = rng.integers(1, wmax + 1, size=m) if wmax > 1 else None
+    return Hypergraph.from_nets(n, nets, ewgt=ewgt)
+
+
+def planted_hypergraph(n: int, m: int, blocks: int = 4,
+                       p_cross: float = 0.1, min_pins: int = 2,
+                       max_pins: int = 8, seed: int = 0, wmax: int = 1):
+    """Planted-partition hypergraph: most nets draw all pins from one of
+    ``blocks`` ground-truth groups; a ``p_cross`` fraction spans the whole
+    vertex set.  The planted assignment is a near-optimal (λ−1) partition —
+    the standard quality benchmark for data-placement workloads."""
+    rng = np.random.default_rng(seed)
+    home = np.arange(n) % blocks           # planted group of each vertex
+    members = [np.flatnonzero(home == b) for b in range(blocks)]
+    nets = []
+    for _ in range(m):
+        sz = int(rng.integers(min_pins, max_pins + 1))
+        if rng.random() < p_cross:
+            pool = np.arange(n)
+        else:
+            pool = members[int(rng.integers(0, blocks))]
+        nets.append(rng.choice(pool, size=min(sz, len(pool)), replace=False))
+    ewgt = rng.integers(1, wmax + 1, size=m) if wmax > 1 else None
+    return Hypergraph.from_nets(n, nets, ewgt=ewgt)
+
+
+def rmat_hypergraph(scale: int, net_factor: float = 1.0,
+                    avg_pins: float = 6.0, max_pins: int = 64,
+                    seed: int = 0, a: float = 0.57,
+                    chunk: int = 1 << 18):
+    """Streaming RMAT-style power-law hypergraph (the million-vertex
+    ``parhyp_scale`` instance family): ``n = 2^scale`` vertices and
+    ``~net_factor·n`` nets whose sizes follow a clipped Pareto tail and
+    whose pins are drawn by 1-D bit-recursive skewed sampling (the RMAT
+    recursion applied to a single id), so vertex degrees are heavy-tailed
+    too.  Nets are generated in bounded chunks of ``chunk`` so peak
+    transient memory stays O(chunk·avg_pins) over the final arrays —
+    host-RSS-friendly at 1M+ nets."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = int(round(net_factor * n))
+    perm = rng.permutation(n)
+    eind_parts, size_parts = [], []
+    done = 0
+    while done < m:
+        b = int(min(chunk, m - done))
+        # clipped-Pareto net sizes with mean ~avg_pins
+        sz = 2 + np.floor(1.5 * (avg_pins - 2.0)
+                          * rng.pareto(2.5, b)).astype(np.int64)
+        sz = np.minimum(sz, max_pins)
+        total = int(sz.sum())
+        v = np.zeros(total, dtype=np.int64)
+        for _ in range(scale):
+            v = (v << 1) | (rng.random(total) >= a)
+        net = np.repeat(np.arange(b, dtype=np.int64), sz)
+        # dedup pins within each net (sort on the flat (net, vertex) key)
+        flat = np.sort(net * n + v, kind="stable")
+        keep = np.concatenate([[True], flat[1:] != flat[:-1]])
+        flat = flat[keep]
+        net_k, v_k = flat // n, flat % n
+        cnt = np.bincount(net_k, minlength=b)
+        # single-pin nets carry no objective — drop them
+        ok = cnt >= 2
+        keep_pin = ok[net_k]
+        eind_parts.append(perm[v_k[keep_pin]])
+        size_parts.append(cnt[ok])
+        done += b
+    sizes = np.concatenate(size_parts)
+    eptr = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=eptr[1:])
+    return Hypergraph.from_arrays(n, eptr, np.concatenate(eind_parts))
+
+
+def grid_hypergraph(rows: int, cols: int):
+    """Each 2×2 window of a grid becomes a 4-pin net — mesh-like, low λ."""
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    nets = []
+    for i in range(rows - 1):
+        for j in range(cols - 1):
+            nets.append([idx[i, j], idx[i, j + 1],
+                         idx[i + 1, j], idx[i + 1, j + 1]])
+    return Hypergraph.from_nets(rows * cols, nets)
+
+
+FAMILIES_H = {
+    "hrand": lambda seed=0: random_hypergraph(2048, 3072, seed=seed),
+    "hplant": lambda seed=0: planted_hypergraph(2048, 3072, blocks=8,
+                                                seed=seed),
+    "hgrid": lambda seed=0: grid_hypergraph(40, 40),
+    "hrmat": lambda seed=0: rmat_hypergraph(11, seed=seed),
+}

@@ -1,6 +1,7 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
 tool import neither jax nor the JAX package `repro`, so the port installs
-and runs without them."""
+and runs without them: a tiny kaffpa and a tiny kahypar run with both
+blocked."""
 import ast
 import os
 import pathlib
@@ -24,7 +25,8 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    assert PORT / "core" / "hypergraph" / "refine.py" in files
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, (f, bad)
@@ -45,6 +47,12 @@ def test_port_runs_with_jax_and_reference_blocked():
         cut, part = interface.kaffpa(g.n, None, g.xadj, None, g.adjncy, 2,
                                      0.03, seed=1, device="cpu")
         assert 0 < cut < 40 and len(part) == g.n
+        from repro_torch.io.generators import planted_hypergraph
+        hg = planted_hypergraph(60, 90, blocks=2, seed=1)
+        km1, hpart = interface.kahypar(hg.n, hg.m, None, None, hg.eptr,
+                                       hg.eind, 2, 0.05, seed=1,
+                                       device="cpu")
+        assert 0 < km1 < 90 and len(hpart) == hg.n
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok", cut)

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Cut quality of the port (`repro_torch`) against the JAX package
+"""Partition quality of the port (`repro_torch`) against the JAX package
 (`repro`) at the same seeds, both on the CPU.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python3 tools/quality_parity_cpu.py
+    JAX_PLATFORMS=cpu PYTHONPATH=src python3 tools/quality_parity_cpu.py \
+        [--program kaffpa|kahypar]
 
 The two packages draw their tie-break noise from different generators, so
-single runs differ; this prints (1) ECO on grid2d(32, 32), k=4, over 32
-seeds: mean cut of each and how many seeds agree, and (2) ECO on
-grid2d(256, 256), k=16, seeds 1 and 2 (the main path's mesh at 1/16 of its
-size; the geometric cut is 6·256 = 1536).  It imports both packages, so it
-is a comparison tool and not part of the port.
+single runs differ.  ``kaffpa`` (the default) prints (1) ECO on
+grid2d(32, 32), k=4, over 32 seeds: mean cut of each and how many seeds
+agree, and (2) ECO on grid2d(256, 256), k=16, seeds 1 and 2 (the main
+path's mesh at 1/16 of its size; the geometric cut is 6·256 = 1536).
+``kahypar`` prints ECO km1 on hp400 (planted_hypergraph(400, 600,
+blocks=4, seed=11)) at k=4 and k=2 over seeds 1..100: mean, median and
+the count of outliers (km1 above twice the median) of each.  It imports
+both packages, so it is a comparison tool and not part of the port.
 """
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -22,6 +27,9 @@ from repro.core.partition import edge_cut, is_feasible
 from repro.io import generators as rgen
 from repro_torch.core import kaffpa as tK
 from repro_torch.io import generators as tgen
+from repro.core.hypergraph import driver as rD
+from repro_torch.core.hypergraph import driver as tD
+from repro_torch.core.hypergraph import metrics as tM
 
 
 def cuts(rows, k, seeds):
@@ -36,7 +44,38 @@ def cuts(rows, k, seeds):
     return np.asarray(ref), np.asarray(port)
 
 
+def kahypar_km1(k, seeds):
+    hp = dict(n=400, m=600, blocks=4, seed=11)
+    hg, th = rgen.planted_hypergraph(**hp), tgen.planted_hypergraph(**hp)
+    ref, port = [], []
+    for s in seeds:
+        pr = rD.kahypar(hg, k, 0.03, "eco", seed=s)
+        pt = tD.kahypar(th, k, 0.03, "eco", seed=s, device="cpu")
+        assert tM.is_feasible(th, pr, k, 0.03)
+        assert tM.is_feasible(th, pt, k, 0.03)
+        ref.append(tM.connectivity(th, pr))
+        port.append(tM.connectivity(th, pt))
+    return np.asarray(ref), np.asarray(port)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--program", choices=("kaffpa", "kahypar"),
+                    default="kaffpa")
+    if ap.parse_args().program == "kahypar":
+        for k in (4, 2):
+            ref, port = kahypar_km1(k, range(1, 101))
+            print(json.dumps({
+                "cell": f"kahypar eco hp400 km1 k={k} seeds 1..100",
+                **{f"{name}_{stat}": float(fn(a))
+                   for name, a in (("ref", ref), ("port", port))
+                   for stat, fn in (("mean", np.mean),
+                                    ("median", np.median))},
+                "ref_outliers": int((ref > 2 * np.median(ref)).sum()),
+                "port_outliers": int((port > 2 * np.median(port)).sum()),
+                "ref_seeds_1_3": ref[:3].tolist(),
+                "port_seeds_1_3": port[:3].tolist()}))
+        return
     ref, port = cuts(32, 4, range(8, 40))
     print(json.dumps({"cell": "eco grid2d(32,32) k=4 seeds 8..39",
                       "ref_mean": ref.mean(), "port_mean": port.mean(),
