@@ -27,7 +27,8 @@ measured.  Any failure exits non-zero before the result line.  Phases:
     view and partition, B = 1 and 4): agreement, then times of the kernel,
     the plain version and one PyTorch call computing the same function
     (``scatter_add_``, timed only), beside the least time the card could
-    take.
+    take for the bytes this run's inputs need (padding slots' ids are not
+    counted: no version needs them).
  7. pin_count against ``ref.pin_count_ref`` at the sweep shapes of
     tests/test_hypergraph.py plus k = 8, B = 1 and 4: 0/1 masks exactly,
     float masks within 1e-5.
@@ -80,6 +81,15 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound_ms(nbytes: int, adds: int):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the additions over
+    the f32 rate, and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, adds / PEAK_F32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -340,16 +350,21 @@ def kahypar_phases(torch, np, dev, card) -> dict:
         plain_ms = cuda_ms(torch, lambda: ref.pin_count_ref(
             ell.pins, ell.pin_mask, ell.netw, labels, k_pad), iters=5)
         library_ms = cuda_ms(torch, library, iters=5)
-        nbytes = (ell.pins.numel() * 4 + ell.pin_mask.numel() * 4
-                  + ell.netw.numel() * 4 + labels.numel() * 4
+        # what the function must move: the whole mask (it marks the live
+        # slots), the pin ids of live slots only, netw of nets with a live
+        # pin (any other net's score is 0 whatever its weight), the labels,
+        # and both outputs
+        live = ell.pin_mask != 0
+        nbytes = (ell.pin_mask.numel() * 4 + int(live.sum()) * 4
+                  + int(live.any(1).sum()) * 4 + labels.numel() * 4
                   + 2 * b * e_pad * k_pad * 4)
-        adds = b * int((ell.pin_mask != 0).sum())
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, adds / PEAK_F32_PER_S) * 1e3
+        adds = b * int(live.sum())
+        bms, by = bound_ms(nbytes, adds)
         rows_out[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms)
+                           bound_ms=bms, bound_by=by)
         log(f"pin_count B={b} e_pad={e_pad} pmax={pmax} k={k_pad} "
             f"n_pad={ell.n_pad}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, scatter_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"ms, scatter_add_ {library_ms:.4f} ms, bound {bms:.4f} ms "
             f"({nbytes} bytes at {PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
     main = rows_out[1]    # level-0 refinement launches one row
     return {"name": "pin_count", "route": "cuda",
@@ -357,7 +372,7 @@ def kahypar_phases(torch, np, dev, card) -> dict:
             "replaces": "src/repro/kernels/pin_affinity.py:33",
             "launches": main_launches, "max_abs_err": max_err,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "shape": [1, e_pad, pmax, k_pad, ell.n_pad]}
 
@@ -490,15 +505,18 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: ref.affinity_ref(
             ell.nbr, ell.wgt, labels, k_main), iters=5)
         library_ms = cuda_ms(torch, library, iters=5)
-        nbytes = (ell.nbr.numel() * 4 + ell.wgt.numel() * 4
-                  + labels.numel() * 4 + b * n_pad * k_main * 4)
-        adds = b * int((ell.wgt != 0).sum())
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, adds / PEAK_F32_PER_S) * 1e3
+        # what the function must move: the whole weight array (it marks
+        # the live slots), the neighbour ids of live slots only, the labels
+        # and the output
+        live = int((ell.wgt != 0).sum())
+        nbytes = (ell.wgt.numel() * 4 + live * 4 + labels.numel() * 4
+                  + b * n_pad * k_main * 4)
+        bms, by = bound_ms(nbytes, b * live)
         rows_out[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bytes=nbytes)
+                           bound_ms=bms, bound_by=by)
         log(f"lp_affinity B={b} n_pad={n_pad} dmax={dmax} k={k_main}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_add_ "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes "
+            f"{library_ms:.4f} ms, bound {bms:.4f} ms ({nbytes} bytes "
             f"at {PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
 
     main = rows_out[1]    # level-0 refinement launches one row
@@ -509,7 +527,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lp_affinity.py:30",
         "launches": main_launches, "max_abs_err": max_err,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": [1, n_pad, dmax, k_main]}, pin_row]}))
     log(card)

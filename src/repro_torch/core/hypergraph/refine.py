@@ -13,9 +13,9 @@ Batch-synchronous k-way LP with exact move gains for both objectives:
 Moves are applied with the same capped acceptance (hard balance guarantee)
 and undo-to-best semantics as the graph refiner (core/lp.py,
 core/refine.py).  Per-net pin counts come either from the CUDA pin-count
-kernel (ELL path, ``kernels/ops.pin_count``) or a COO scatter (the plain
-path); both are exact integer counts, so the two paths take the same
-decisions.
+kernel (given an ELL-H view, ``kernels/ops.pin_count``) or a COO scatter
+(the plain path); both are exact integer counts, so the two paths take the
+same decisions.
 
 The scan takes a leading batch dim of candidate rows.  Tie-break noise is
 an argument: a (B, rounds, n_pad, k_pad) tensor (the tests hand in the JAX
@@ -71,7 +71,7 @@ def _gains(hc: PinCoo, labels: torch.Tensor, cnt: torch.Tensor,
 def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
                              cap: torch.Tensor, noise: lp_mod.Noise,
                              force: torch.Tensor, k: int, rounds: int,
-                             objective: str, use_kernel: bool,
+                             objective: str,
                              ell: Optional[EllHypergraph] = None,
                              nrounds: Optional[torch.Tensor] = None):
     """THE hypergraph refinement program: everything routes through here.
@@ -80,7 +80,9 @@ def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
     capacity on bucket-padding blocks; ``noise`` the per-round draws, a
     (B, rounds, n_pad, k) tensor or B generators; ``force`` (B,) bools;
     ``nrounds`` (B,) optionally masks a row's trailing rounds to no-ops
-    (default: every row runs ``rounds``).  Returns (labels (B, n_pad),
+    (default: every row runs ``rounds``).  With an ``ell`` view the pin
+    counts come from ``kernels/ops.pin_count`` (the CUDA kernel on a card),
+    without one from the COO scatter.  Returns (labels (B, n_pad),
     best objective (B,)).  Rounds past every row's ``nrounds`` are not run.
     """
     n = hc.n_pad
@@ -93,7 +95,7 @@ def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
     if nrounds is None:
         nrounds = torch.full((b,), rounds, dtype=torch.int64, device=dev)
 
-    if use_kernel and ell is not None:
+    if ell is not None:
         from repro_torch.kernels import ops as kops
 
         def cnt_fn(labels):
@@ -170,18 +172,19 @@ def _pad_caps(cap: np.ndarray, k_pad: int) -> np.ndarray:
 
 
 def _views(hg: Hypergraph, hc, ell, use_kernel, device):
-    """Resolve (use_kernel, hc, ell) for a host-level entry: cached views
-    fix the device, else ``device`` does (None = CUDA)."""
+    """Resolve (hc, ell) for a host-level entry: cached views fix the
+    device, else ``device`` does (None = CUDA).  ``ell`` is None exactly
+    when the scan is to take the COO path."""
     dev = hc.device if hc is not None else resolve_device(device)
     use_kernel = default_use_kernel(dev) if use_kernel is None else use_kernel
     hc = hc if hc is not None else to_pincoo(hg, device=dev)
-    if use_kernel and ell is None:
-        ell = to_ell_h(hg, device=dev)
-    return use_kernel, hc, ell
+    if not use_kernel:
+        return hc, None
+    return hc, ell if ell is not None else to_ell_h(hg, device=dev)
 
 
 def _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds, force,
-                          objective, use_kernel) -> np.ndarray:
+                          objective) -> np.ndarray:
     """Shared batched-entry plumbing: host partitions in, host int64 rows
     (cut to ``hg.n``) out."""
     dev = hc.device
@@ -194,7 +197,7 @@ def _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds, force,
         torch.from_numpy(_pad_caps(_caps_for(hg, k, eps), k_pad)).to(dev),
         _generators(seeds, dev),
         torch.as_tensor(np.asarray(force, dtype=bool)).to(dev), k_pad,
-        rounds, objective, use_kernel, ell=ell)
+        rounds, objective, ell=ell)
     return outs.cpu().numpy().astype(np.int64)[:, :hg.n]
 
 
@@ -214,10 +217,10 @@ def refine_hypergraph(hg: Hypergraph, part: np.ndarray, k: int,
     """
     if k <= 1 or hg.n == 0:
         return np.asarray(part, dtype=np.int64)
-    use_kernel, hc, ell = _views(hg, hc, ell, use_kernel, device)
+    hc, ell = _views(hg, hc, ell, use_kernel, device)
     out = _run_hyper_scan_batch(hg, hc, ell, [part], k, eps, rounds,
                                 [row_seed(seed, 0)], [force_balance],
-                                objective, use_kernel)[0]
+                                objective)[0]
     score = M.connectivity if objective == "km1" else M.cut_net
     # paranoia: keep the better of (in, out) among feasible options
     if score(hg, out) <= score(hg, part) or force_balance:
@@ -238,12 +241,12 @@ def refine_hypergraph_batch(hg: Hypergraph, parts: list, k: int,
     generator seeds (default ``row_seed(seed, i)`` for row i)."""
     if k <= 1 or hg.n == 0 or not parts:
         return [np.asarray(p, dtype=np.int64) for p in parts]
-    use_kernel, hc, ell = _views(hg, hc, ell, use_kernel, device)
+    hc, ell = _views(hg, hc, ell, use_kernel, device)
     force = [not M.is_feasible(hg, p, k, eps) for p in parts]
     if seeds is None:
         seeds = [row_seed(seed, i) for i in range(len(parts))]
     outs = _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds,
-                                 force, objective, use_kernel)
+                                 force, objective)
     score = M.connectivity if objective == "km1" else M.cut_net
     result = []
     for i, p in enumerate(parts):

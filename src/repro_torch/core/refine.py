@@ -56,16 +56,17 @@ def _refine_scan_batch(g: CooGraph, labels0: torch.Tensor, cap: torch.Tensor,
                        noise: lp_mod.Noise, nrounds: torch.Tensor,
                        zero_gain: torch.Tensor, force: torch.Tensor,
                        active0: torch.Tensor, k: int, rounds: int,
-                       ell: Optional[EllGraph] = None,
-                       use_kernel: bool = False):
+                       ell: Optional[EllGraph] = None):
     """THE k-way refinement program: everything routes through here.
 
     ``labels0`` (B, n_pad) int32 candidates; ``cap`` (k,); ``noise`` the
     per-round draws, a (B, rounds, n_pad, k) tensor or B generators;
     ``nrounds`` (B,) masks a row's trailing rounds to no-ops; ``zero_gain``
     and ``force`` (B,) bools; ``active0`` (B, n_pad) bools seed the
-    localized search (all-ones = unrestricted).  Returns (labels (B,
-    n_pad), cut (B,)).  Rounds past every row's ``nrounds`` are no-ops for
+    localized search (all-ones = unrestricted).  With an ``ell`` view the
+    affinities come from ``kernels/ops.lp_affinity`` (the CUDA kernel on a
+    card), without one from the COO scatter.  Returns (labels (B, n_pad),
+    cut (B,)).  Rounds past every row's ``nrounds`` are no-ops for
     all rows and are not run.
     """
     n = g.n_pad
@@ -78,7 +79,7 @@ def _refine_scan_batch(g: CooGraph, labels0: torch.Tensor, cap: torch.Tensor,
     feas0 = (sizes0 - cap).amax(1) <= 1e-6
     best_cut = torch.where(feas0, cut0, torch.inf)
     affinity_fn = None
-    if use_kernel and ell is not None:
+    if ell is not None:
         from repro_torch.kernels import ops as kops
         affinity_fn = lambda _g, lab, kk: kops.lp_affinity(   # noqa: E731
             ell.nbr, ell.wgt, lab, kk)
@@ -130,7 +131,7 @@ def _generators(seeds: Sequence[int], device) -> list:
 
 
 def _run_scan_batch(coo, cap_np, labs, seeds, nrounds, zero, force, active,
-                    k, rounds, ell, use_kernel):
+                    k, rounds, ell):
     """Shared batched-entry plumbing: host arrays in, host int64 rows out."""
     dev = coo.device
 
@@ -140,21 +141,22 @@ def _run_scan_batch(coo, cap_np, labs, seeds, nrounds, zero, force, active,
     outs, _ = _refine_scan_batch(
         coo, put(labs, np.int32), put(cap_np, np.float32),
         _generators(seeds, dev), put(nrounds, np.int64), put(zero, bool),
-        put(force, bool), put(active, bool), k, rounds, ell=ell,
-        use_kernel=use_kernel)
+        put(force, bool), put(active, bool), k, rounds, ell=ell)
     return outs.cpu().numpy().astype(np.int64)
 
 
 def _views(g: Graph, coo, ell, use_kernel, device):
-    """Resolve (device, use_kernel, coo, ell) for a host-level entry:
-    cached views fix the device, else ``device`` does (None = CUDA)."""
+    """Resolve (coo, ell) for a host-level entry: cached views fix the
+    device, else ``device`` does (None = CUDA).  ``ell`` is None exactly
+    when the scan is to take the COO path."""
     dev = coo.device if coo is not None else resolve_device(device)
     use_kernel = default_use_kernel(dev) if use_kernel is None else use_kernel
     coo = coo if coo is not None else to_coo(g, device=dev)
-    if use_kernel and ell is None:
-        # same n_pad as the COO view
-        ell = to_ell(g, row_tile=coo.n_pad, device=dev)
-    return use_kernel, coo, ell
+    if not use_kernel:
+        return coo, None
+    # same n_pad as the COO view
+    return coo, (ell if ell is not None
+                 else to_ell(g, row_tile=coo.n_pad, device=dev))
 
 
 def refine_kway(g: Graph, part: np.ndarray, k: int, eps: float = 0.03,
@@ -173,13 +175,13 @@ def refine_kway(g: Graph, part: np.ndarray, k: int, eps: float = 0.03,
     """
     if k <= 1 or g.n == 0:
         return part
-    use_kernel, coo, ell = _views(g, coo, ell, use_kernel, device)
+    coo, ell = _views(g, coo, ell, use_kernel, device)
     labs = np.zeros((1, coo.n_pad), dtype=np.int32)
     labs[0, :g.n] = part
     outs = _run_scan_batch(coo, _caps_for(g, k, eps, fractions), labs,
                            [row_seed(seed, 0)], [rounds], [False],
                            [force_balance], np.ones((1, coo.n_pad), bool),
-                           k, rounds, ell, use_kernel)
+                           k, rounds, ell)
     out = outs[0][:g.n]
     # paranoia: keep the better of (in, out) among feasible options
     if edge_cut(g, out) <= edge_cut(g, part) or force_balance:
@@ -202,7 +204,7 @@ def refine_kway_batch(g: Graph, parts: list, k: int, eps: float = 0.03,
     """
     if k <= 1 or g.n == 0 or not parts:
         return [np.asarray(p, dtype=np.int64) for p in parts]
-    use_kernel, coo, ell = _views(g, coo, ell, use_kernel, device)
+    coo, ell = _views(g, coo, ell, use_kernel, device)
     labs = np.zeros((len(parts), coo.n_pad), dtype=np.int32)
     for i, p in enumerate(parts):
         labs[i, :g.n] = p
@@ -213,7 +215,7 @@ def refine_kway_batch(g: Graph, parts: list, k: int, eps: float = 0.03,
                            np.full(len(parts), rounds),
                            np.zeros(len(parts), bool), force,
                            np.ones((len(parts), coo.n_pad), bool),
-                           k, rounds, ell, use_kernel)
+                           k, rounds, ell)
     outs = outs[:, :g.n]
     result = []
     for i, p in enumerate(parts):
@@ -235,7 +237,7 @@ def multi_try_refine(g: Graph, part: np.ndarray, k: int, eps: float = 0.03,
     searches run the COO path."""
     if k <= 1 or g.n == 0:
         return part
-    _, coo, _ = _views(g, coo, None, False, device)
+    coo, _ = _views(g, coo, None, False, device)
     cap_np = _caps_for(g, k, eps)
     best = np.asarray(part, dtype=np.int64)
     best_cut = edge_cut(g, best)
@@ -253,8 +255,7 @@ def multi_try_refine(g: Graph, part: np.ndarray, k: int, eps: float = 0.03,
         active0[0, chosen] = True
         outs = _run_scan_batch(coo, cap_np, labs,
                                [row_seed(seed * 997 + t, 0)], [rounds],
-                               [True], [False], active0, k, rounds, None,
-                               False)
+                               [True], [False], active0, k, rounds, None)
         out = outs[0][:g.n]
         c = edge_cut(g, out)
         if c < best_cut:

@@ -56,5 +56,5 @@ def pin_affinity(vnets: torch.Tensor, pins: torch.Tensor,
     Per-net scores come from ``pin_count`` (the kernel on a CUDA tensor);
     the vertex-side sum over ``vnets`` rows is plain torch on either device
     (padding slots point at a zero-weight net)."""
-    _, score = pin_count(pins, pin_mask, netw, labels, k)
-    return score[:, vnets.long()].sum(2)
+    return _ref.pin_affinity_ref(vnets, pins, pin_mask, netw, labels, k,
+                                 pin_count=pin_count)

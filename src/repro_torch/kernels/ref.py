@@ -51,9 +51,12 @@ def pin_count_ref(pins: torch.Tensor, pin_mask: torch.Tensor,
 
 def pin_affinity_ref(vnets: torch.Tensor, pins: torch.Tensor,
                      pin_mask: torch.Tensor, netw: torch.Tensor,
-                     labels: torch.Tensor, k: int) -> torch.Tensor:
+                     labels: torch.Tensor, k: int,
+                     pin_count=pin_count_ref) -> torch.Tensor:
     """aff[b, v, c] = Σ_{e ∈ vnets[v]} score[b, e, c]  — (B, n_pad, k).
 
-    Padding slots of ``vnets`` point at a padding net (netw == 0)."""
-    _, score = pin_count_ref(pins, pin_mask, netw, labels, k)
+    Padding slots of ``vnets`` point at a padding net (netw == 0).  The
+    per-net scores come from ``pin_count``; ``ops.pin_affinity`` passes
+    its device-dispatching one, so this is the only vertex-side sum."""
+    _, score = pin_count(pins, pin_mask, netw, labels, k)
     return score[:, vnets.long()].sum(2)

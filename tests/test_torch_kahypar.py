@@ -12,12 +12,15 @@ acceptance (at k=2, 2 of 768 labels within 5 rounds).
 
 End to end, the two packages draw their noise from different generators,
 so single runs differ.  On hp400 the km1 of a run is heavy-tailed in both
-packages: about one seed in ten lands a coarse hierarchy too heavy to
-balance and a km1 several times the median
-(``tools/quality_parity_cpu.py`` prints 100 seeds of each).  A sum over a
-few seeds then measures which side drew the outliers, so the 1.15× band is
-held on the median km1 over nine seeds, and every port partition must be
-feasible."""
+packages: about one seed in nine lands a coarse hierarchy too heavy to
+balance and a km1 several times the median (over seeds 1..400 at k=4,
+46 such seeds in the reference and 47 in the port, means 139.4775 and
+138.89: ``tools/quality_parity_cpu.py --program kahypar --seeds 400``).
+A sum over a few seeds then measures which side drew the outliers.  So
+over seeds 1..30 the band holds the median (the bulk) and the mean (the
+tail's mass) within 1.15× of the reference's, and the count of outlier
+seeds (km1 above twice the reference's median) to at most the
+reference's + ``TAIL_MARGIN``; every port partition must be feasible."""
 import dataclasses
 
 import numpy as np
@@ -45,6 +48,7 @@ from repro_torch.io import generators as tgen
 CPU = torch.device("cpu")
 T = torch.from_numpy
 BAND = 1.15
+TAIL_MARGIN = 3
 HP400 = dict(n=400, m=600, blocks=4, seed=11)
 
 
@@ -72,7 +76,7 @@ def _port_scan(port_hg, labs, cap, noise, force, k_pad, rounds, objective,
     ell = tC.to_ell_h(port_hg, device=CPU) if use_kernel else None
     out, obj = tR._hyper_refine_scan_batch(
         hc, T(labs), T(cap), T(noise), torch.as_tensor(force), k_pad, rounds,
-        objective, use_kernel, ell=ell,
+        objective, ell=ell,
         nrounds=None if nrounds is None else torch.as_tensor(nrounds))
     return out.numpy(), obj.numpy()
 
@@ -187,14 +191,19 @@ def test_kahypar_within_band_of_reference(k):
     ref_hg = rgen.planted_hypergraph(**HP400)
     port_hg = tgen.planted_hypergraph(**HP400)
     ref_km1, port_km1 = [], []
-    for s in range(1, 10):
+    for s in range(1, 31):
         ref_km1.append(tM.connectivity(
             port_hg, rD.kahypar(ref_hg, k, 0.03, "eco", seed=s)))
         part = tD.kahypar(port_hg, k, 0.03, "eco", seed=s, device="cpu")
         assert tM.is_feasible(port_hg, part, k, 0.03), s
         port_km1.append(tM.connectivity(port_hg, part))
-    assert np.median(port_km1) <= BAND * np.median(ref_km1), (port_km1,
-                                                              ref_km1)
+    ref_km1, port_km1 = np.asarray(ref_km1), np.asarray(port_km1)
+    readings = (port_km1.tolist(), ref_km1.tolist())
+    assert np.median(port_km1) <= BAND * np.median(ref_km1), readings
+    assert port_km1.mean() <= BAND * ref_km1.mean(), readings
+    tail = 2 * np.median(ref_km1)
+    assert ((port_km1 > tail).sum()
+            <= (ref_km1 > tail).sum() + TAIL_MARGIN), readings
     rnd = tM.connectivity(port_hg, random_partition(port_hg, k, seed=0))
     assert np.median(port_km1) * 2 <= rnd
 

@@ -58,7 +58,7 @@ def _port_scan(port_g, labs, cap, noise, nrounds, zero, force, active, k,
     out, cut = tref._refine_scan_batch(
         coo, T(labs), T(cap), T(noise), torch.as_tensor(nrounds),
         torch.as_tensor(zero), torch.as_tensor(force), torch.as_tensor(active),
-        k, rounds, ell=ell, use_kernel=use_kernel)
+        k, rounds, ell=ell)
     return out.numpy(), cut.numpy()
 
 
