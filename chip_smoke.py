@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from this checkout, holds each against its plain
-PyTorch version, drives kaffpa end to end at a 1M-vertex mesh and kahypar
-end to end at a 131k-vertex power-law hypergraph, and prints what it
-measured.  Any failure exits non-zero before the result line.  Phases:
+PyTorch version, drives kaffpa end to end at a 1M-vertex mesh, kahypar
+end to end at a 131k-vertex power-law hypergraph, and zamba2-2.7B at full
+width (a 2048-token forward and a served request stream), and prints what
+it measured.  Any failure exits non-zero before the result line.  Phases:
 
- 1. The card's name and power limit; build kernels/csrc/lp_affinity.cu and
-    kernels/csrc/pin_count.cu for sm_90a (one nvcc each, started together)
-    and print the build times.
+ 1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
+    kernels/csrc/pin_count.cu and kernels/csrc/ssd_scan.cu for sm_90a (one
+    nvcc each, started together) and print the build times.
  2. lp_affinity against ``ref.affinity_ref`` at the sweep shapes of
     tests/test_kernels.py, B = 1 and 4: integer weights exactly, float
     weights within 1e-5.
@@ -44,6 +45,29 @@ measured.  Any failure exits non-zero before the result line.  Phases:
 11. pin_count at the kahypar main path's level-0 shape (the run's own
     ELL-H view and partition, B = 1 and 4): agreement, then times of the
     kernel, the plain version and ``scatter_add_``, beside the bound.
+12. ssd_scan against ``ref.ssd_scan_ref`` at the sweep shapes of
+    tests/test_kernels.py::test_ssd_scan_sweep (inputs drawn as that test
+    draws them) within 3e-4 abs and rel.
+13. zamba2-2.7B at full width (the published config: 54 layers, d_model
+    2560, 2,341,405,600 f32 parameters made on the card from seed 0): the
+    full-sequence forward on tokens (B = 2, L = 2048) on the kernel path
+    (``engine=None``) with the SSD launch count zeroed just before and
+    read just after (54: one per Mamba layer), and on the plain path
+    (``engine="chunked"``, no launch); the logits agree within 1e-3 of
+    max |logits|.  Walls after one warm-up each, and the peak memory.
+    Then the kernel at the forward's shape (BH = 160, L = 2048, P = N =
+    64, chunk 128) on the first layer's real inputs, held to 1e-3 of
+    max |y| against the exact recurrence.
+14. Serving: ``serve_stream`` with 6 requests (prompts of 16–64 tokens,
+    16 new tokens each, arrival ticks 0–8, 4 slots, max_len 256): every
+    request finishes with 16 tokens; wall, tokens/s and the SSD launch
+    count (0: decode runs the recurrence).
+15. Each request's prefill logits (token by token through the batcher's
+    ``prefill_step``)
+    against the kernel-path forward on its prompt at the last position,
+    within 2e-3 of max |logits|, and whether the argmax agrees.
+16. ssd_scan timed at the forward's shape beside the plain recurrence,
+    the chunked torch engine and the bound.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -53,6 +77,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,9 +90,13 @@ SRC = ROOT / "src"
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 SWEEP = [(128, 8, 2), (256, 24, 5), (128, 16, 130), (384, 40, 17)]
 # (vertices, nets, k) of tests/test_hypergraph.py's pin-count sweep, + k=8
 PIN_SWEEP = [(100, 150, 2), (300, 500, 5), (64, 90, 130), (200, 260, 8)]
+# (BH, L, P, N, chunk) of tests/test_kernels.py::test_ssd_scan_sweep
+SSD_SWEEP = [(2, 128, 8, 4, 64), (3, 256, 16, 8, 128), (1, 64, 32, 16, 32),
+             (2, 200, 8, 8, 64)]
 
 
 class SmokeError(RuntimeError):
@@ -377,6 +406,223 @@ def kahypar_phases(torch, np, dev, card) -> dict:
             "shape": [1, e_pad, pmax, k_pad, ell.n_pad]}
 
 
+def ssd_sweep_inputs(np, bh, l, p, n):
+    """tests/test_kernels.py::test_ssd_scan_sweep's inputs, drawn as it
+    draws them (numpy arrays)."""
+    rng = np.random.default_rng(bh * l + p)
+    x = rng.standard_normal((bh, l, p)).astype(np.float32)
+    ld = (-0.05 - 0.5 * rng.random((bh, l))).astype(np.float32)
+    b = (rng.standard_normal((bh, l, n)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((bh, l, n)) * 0.3).astype(np.float32)
+    return x, ld, b, c
+
+
+def max_rel(torch, got, want) -> tuple:
+    """(max |got − want|, that over max |want|)."""
+    err = float((got - want).abs().max())
+    return err, err / float(want.abs().max())
+
+
+def step_spans(rec) -> dict:
+    """Count and host-clock seconds of the serve step spans: the
+    ``serve/prefill_step`` spans (one per request, its prompt run token by
+    token) under "prefill", the ``serve/decode_step`` spans keyed by the
+    batch rows of the step."""
+    out, open_ts = {}, {}
+    for ev in rec.events:
+        name = ev.get("name")
+        if name not in ("serve/prefill_step", "serve/decode_step"):
+            continue
+        if ev["ph"] == "B":
+            key = ("prefill" if name == "serve/prefill_step"
+                   else str(ev["args"]["batch"]))
+            open_ts[ev["tid"]] = (ev["ts"], key)
+        elif ev["ph"] == "E":
+            ts, key = open_ts.pop(ev["tid"])
+            n, secs = out.get(key, (0, 0.0))
+            out[key] = (n + 1, round(secs + (ev["ts"] - ts) / 1e6, 4))
+    return out
+
+
+def run_forward(torch, T, model, cfg, tokens, engine):
+    """One full-sequence forward with the SSD launch count zeroed just
+    before and read just after; returns (logits, wall s, launches)."""
+    from repro_torch import obs
+    from repro_torch.kernels.ssd_scan import LAUNCHES
+    torch.cuda.synchronize()
+    obs.metrics.reset(LAUNCHES)
+    t0 = time.perf_counter()
+    logits, _ = T.forward(model, cfg, tokens, engine=engine)
+    torch.cuda.synchronize()
+    return (logits, time.perf_counter() - t0,
+            int(obs.metrics.get(LAUNCHES)))
+
+
+def zamba2_phases(torch, np, dev, card) -> dict:
+    """Phases 12-16; returns the ssd_scan row of the kernels line."""
+    from repro_torch import obs
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import LAUNCHES
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.serve.batching import serve_stream
+
+    # -- 12. kernel vs plain version at the sweep shapes -------------------
+    max_err = 0.0
+    for (bh, l, p, n, chunk) in SSD_SWEEP:
+        ins = [torch.from_numpy(a).to(dev)
+               for a in ssd_sweep_inputs(np, bh, l, p, n)]
+        got = ops.ssd_scan(*ins, chunk=chunk)
+        want = ref.ssd_scan_ref(*ins)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"ssd_scan shape {tuple(got.shape)}")
+        excess = float(((got - want).abs() - 3e-4 * want.abs()).max())
+        check(excess <= 3e-4, f"ssd_scan disagrees with ssd_scan_ref at "
+              f"{(bh, l, p, n, chunk)}: |err| − 3e-4|want| = {excess}")
+        max_err = max(max_err, float((got - want).abs().max()))
+    log(f"sweep: ssd_scan == ssd_scan_ref at {len(SSD_SWEEP)} shapes within "
+        f"3e-4 abs + rel (max |err| {max_err:g})")
+
+    # -- 13. zamba2-2.7B forward at full width -----------------------------
+    cfg = get_config("zamba2_2p7b")
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"zamba2-2.7B: {n_params} f32 parameters made on the card in "
+        f"{time.perf_counter() - t0:.3f} s (layers {cfg.n_layers}, d_model "
+        f"{cfg.d_model}, vocab_pad {cfg.vocab_pad}, ssm heads "
+        f"{cfg.ssm_nheads} x P {cfg.ssm_head_dim}, N {cfg.ssm_state})")
+    bsz, seq = 2, 2048
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    for engine in (None, "chunked"):
+        run_forward(torch, T, model, cfg, tokens, engine)     # warm-up
+        walls[engine] = run_forward(torch, T, model, cfg, tokens, engine)
+    logits, wall_k, launches_k = walls[None]
+    logits_c, wall_c, launches_c = walls["chunked"]
+    peak = torch.cuda.max_memory_allocated()
+    check(logits.shape == (bsz, seq, cfg.vocab_pad),
+          f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    err_abs, err_rel = max_rel(torch, logits, logits_c)
+    log(f"main path zamba2 forward B={bsz} L={seq}: kernel path wall_s="
+        f"{wall_k:.4f} launches={launches_k}; chunked path wall_s="
+        f"{wall_c:.4f} launches={launches_c}; logits max |err| {err_abs:g} "
+        f"rel {err_rel:g} (max |logits| {float(logits.abs().max()):g}); "
+        f"peak memory {peak} B [{card}]")
+    check(launches_k == cfg.n_layers, f"kernel path launched ssd_scan "
+          f"{launches_k} times, expected {cfg.n_layers}")
+    check(launches_c == 0, "engine='chunked' launched ssd_scan")
+    check(err_rel <= 1e-3, f"kernel and chunked logits differ: {err_rel}")
+    del logits_c, walls
+
+    # the kernel on the first Mamba layer's real inputs (the forward's
+    # shape), against the exact recurrence
+    blk = model.blocks[0]
+    with torch.no_grad():
+        x0 = model.embed[tokens] * math.sqrt(cfg.d_model)
+        _, _, x_eff, ld, bmat, cmat, _ = M2.scan_inputs(
+            blk.mamba, rmsnorm(x0, blk.ln1, cfg.norm_eps), cfg)
+        xs, lds, bs, cs = M2.merge_heads(x_eff, ld, bmat, cmat)
+    y = ops.ssd_scan(xs, lds, bs, cs)
+    y_ref = ref.ssd_scan_ref(xs, lds, bs, cs)
+    torch.cuda.synchronize()
+    y_abs, y_rel = max_rel(torch, y, y_ref)
+    s_min = float(torch.cumsum(lds.reshape(lds.shape[0], -1, 128),
+                               -1).min())
+    log(f"ssd_scan at the forward's shape {tuple(xs.shape)} N="
+        f"{bs.shape[-1]}: max |err| {y_abs:g}, rel to max |y| {y_rel:g} "
+        f"(in-chunk log-decay cumsum down to {s_min:g})")
+    check(y_rel <= 1e-3, f"ssd_scan at the forward's shape: rel {y_rel}")
+    max_err = max(max_err, y_abs)
+
+    # -- 14. serving ---------------------------------------------------------
+    rng = np.random.default_rng(2)
+    stream = [(int(rng.integers(0, 9)),
+               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
+               16) for _ in range(6)]
+    rec = obs.Recorder("serve")
+    torch.cuda.synchronize()
+    obs.metrics.reset(LAUNCHES)
+    t0 = time.perf_counter()
+    with obs.use(rec):
+        reqs = serve_stream(model, cfg, stream, batch_slots=4, max_len=256)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = int(obs.metrics.get(LAUNCHES))
+    n_new = sum(len(r.out) for r in reqs)
+    n_prompt = sum(len(p) for _, p, _ in stream)
+    steps = step_spans(rec)
+    log(f"serve zamba2 6 requests (prompts {[len(p) for _, p, _ in stream]}"
+        f", arrival ticks {[a for a, _, _ in stream]}, 4 slots, max_len "
+        f"256): wall_s={serve_wall:.4f} new tokens={n_new} "
+        f"({n_new / serve_wall:.2f} tokens/s; with the {n_prompt} prompt "
+        f"tokens {(n_new + n_prompt) / serve_wall:.2f} tokens/s) "
+        f"ssd_scan launches={serve_launches}; step spans (host clock, "
+        f"count and s: prefill, and decode by batch rows): {json.dumps(steps)} [{card}]")
+    for r in reqs:
+        check(r.done and len(r.out) == 16,
+              f"request {r.rid} finished with {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab_pad for t in r.out),
+              f"request {r.rid} produced a token outside the vocabulary")
+    check(serve_launches == 0, "decode launched ssd_scan")
+
+    # -- 15. batcher prefill vs the kernel-path forward --------------------
+    worst, agree = 0.0, 0
+    for r, (_, prompt, _) in zip(reqs, stream):
+        full, _ = T.forward(model, cfg, torch.tensor([prompt], device=dev))
+        want = full[0, -1]
+        _, rel = max_rel(torch, r.logits, want)
+        worst = max(worst, rel)
+        agree += int(int(r.logits.argmax()) == int(want.argmax()))
+    log(f"cross-check: batcher prefill vs kernel-path forward at the "
+        f"prompt's last position: worst rel {worst:g}, argmax agrees "
+        f"{agree}/{len(reqs)}")
+    check(worst <= 2e-3, f"batcher prefill and forward differ: {worst}")
+
+    # -- 16. the kernel timed at the forward's shape ----------------------
+    ms = cuda_ms(torch, lambda: ops.ssd_scan(xs, lds, bs, cs))
+    plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(xs, lds, bs, cs),
+                       iters=3, warmup=1)
+    chunked_ms = cuda_ms(torch, lambda: M2.ssd_chunked(xs, lds, bs, cs),
+                         iters=5)
+    bh, l, p = xs.shape
+    n, q = bs.shape[-1], 128
+    tri = q * (q + 1) // 2
+    nbytes = 4 * (xs.numel() + lds.numel() + bs.numel() + cs.numel()
+                  + y.numel())
+    # the function's least work is the fewer of the two algorithms' FLOP:
+    # the chunked form over the causal half, or the recurrence's 5 N P per
+    # step (3 N P for h = decay h + b x^T, 2 N P for y = h^T c)
+    chunked_flops = bh * (l // q) * (2 * tri * n + 2 * tri * p
+                                     + 4 * q * n * p)
+    flops = min(chunked_flops, bh * l * 5 * n * p)
+    bms, by = bound_ms(nbytes, flops)
+    tf32_ms = chunked_flops / PEAK_TF32_PER_S * 1e3
+    log(f"ssd_scan BH={bh} L={l} P={p} N={n} chunk={q}: kernel {ms:.4f} "
+        f"ms, plain (sequential recurrence) {plain_ms:.4f} ms, ssd_chunked "
+        f"(composed torch ops) {chunked_ms:.4f} ms, no single PyTorch call; "
+        f"bound {bms:.4f} ms by {by} ({nbytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s, {flops} FLOP at "
+        f"{PEAK_F32_PER_S / 1e12} TFLOP/s f32; the chunked form's "
+        f"{chunked_flops} FLOP would take {tf32_ms:.4f} ms at "
+        f"{PEAK_TF32_PER_S / 1e12} TFLOP/s TF32) [{card}]")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:27",
+            "launches": launches_k, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "chunked_ms": chunked_ms,
+            "rel_err": y_rel,
+            "shape": [bh, l, p, n, q]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found: run chip_smoke.py "
@@ -397,7 +643,7 @@ def main() -> int:
     from repro_torch.core.csr import to_coo, to_ell
     from repro_torch.core.partition import balance, is_feasible
     from repro_torch.io.generators import barabasi_albert, grid2d
-    from repro_torch.kernels import lp_affinity, pin_affinity, ref
+    from repro_torch.kernels import lp_affinity, pin_affinity, ref, ssd_scan
 
     # -- 1. card, build -----------------------------------------------------
     card = card_line()
@@ -410,9 +656,10 @@ def main() -> int:
         lib = build()
         return lib, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(timed_build, b)
-                  for b in (lp_affinity.build, pin_affinity.build)]
+                  for b in (lp_affinity.build, pin_affinity.build,
+                            ssd_scan.build)]
         for fut in builds:
             lib, secs = fut.result()
             log(f"built {lib.relative_to(ROOT)} in {secs:.3f} s")
@@ -521,6 +768,7 @@ def main() -> int:
 
     main = rows_out[1]    # level-0 refinement launches one row
     pin_row = kahypar_phases(torch, np, dev, card)
+    ssd_row = zamba2_phases(torch, np, dev, card)
     log(json.dumps({"kernels": [{
         "name": "lp_affinity", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lp_affinity.cu",
@@ -529,7 +777,7 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "shape": [1, n_pad, dmax, k_main]}, pin_row]}))
+        "shape": [1, n_pad, dmax, k_main]}, pin_row, ssd_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

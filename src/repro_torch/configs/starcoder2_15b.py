@@ -1,0 +1,9 @@
+"""starcoder2-15b [dense]: GQA kv=4, RoPE [arXiv:2402.19173; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="starcoder2-15b", family="dense",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4,
+    d_ff=24576, vocab=49152, mlp_gelu=True,
+    source="arXiv:2402.19173; hf",
+)

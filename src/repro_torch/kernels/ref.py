@@ -60,3 +60,23 @@ def pin_affinity_ref(vnets: torch.Tensor, pins: torch.Tensor,
     its device-dispatching one, so this is the only vertex-side sum."""
     _, score = pin_count(pins, pin_mask, netw, labels, k)
     return score[:, vnets.long()].sum(2)
+
+
+def ssd_scan_ref(x: torch.Tensor, logdecay: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """Exact sequential SSD recurrence (the SSD kernel's plain version).
+
+    h_t = exp(logdecay_t) · h_{t-1} + b_t ⊗ x_t ;  y_t = h_tᵀ c_t
+    x: (BH, L, P), logdecay: (BH, L), b/c: (BH, L, N) → y: (BH, L, P), f32.
+    """
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    h = torch.zeros(bh, n, p, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        h = (torch.exp(logdecay[:, t])[:, None, None] * h
+             + b[:, t, :, None] * x[:, t, None, :])
+        ys.append(torch.einsum("znp,zn->zp", h, c[:, t]))
+    if not ys:
+        return torch.zeros(bh, 0, p, dtype=torch.float32, device=x.device)
+    return torch.stack(ys, 1)

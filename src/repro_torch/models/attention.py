@@ -1,0 +1,127 @@
+"""GQA attention with RoPE and a KV cache (port of
+``repro/models/attention.py``, the flavour the hybrid family uses: causal
+self-attention with the config's logit softcap).
+
+Every position cursor is per row: ``cache_pos`` may be a (B,) tensor, so a
+batch of slots, each at its own position, runs as one batch dimension
+(per-row RoPE positions, causal masks and cache writes) where the
+reference vmaps one slot at a time.  The cache is written in place.  An
+int cursor stays on the host: no position is copied to the card, so a
+step makes no host sync.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import (apply_rope, causal_mask, normal,
+                                       rope_freqs, softcap)
+
+
+def init_attn(gen: torch.Generator, cfg, dtype) -> dict:
+    d = cfg.d_model
+    hd = cfg.hd
+    s = 0.02
+    return {
+        "wq": normal(gen, (d, cfg.n_heads * hd), s, dtype),
+        "wk": normal(gen, (d, cfg.n_kv_heads * hd), s, dtype),
+        "wv": normal(gen, (d, cfg.n_kv_heads * hd), s, dtype),
+        "wo": normal(gen, (cfg.n_heads * hd, d), s, dtype),
+    }
+
+
+def _sdpa(q, k, v, mask, cap, scale):
+    """q: (B,Sq,H,hd) k/v: (B,Skv,KV,hd) with GQA broadcast; mask
+    (Sq,Skv) or per row (B,Sq,Skv), True = attend."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, sq, kvh, rep, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
+    logits = softcap(logits, cap)
+    mask = mask.reshape((-1,) + mask.shape[-2:])[:, None, None]
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, -1).to(v.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v)
+    return out.reshape(b, sq, h, hd)
+
+
+ONLINE_THRESHOLD = 2048      # use online softmax when Sq·Skv exceeds this²
+KV_BLOCK = 1024
+
+
+def _sdpa_online(q, k, v, cap, scale, *, q_offset):
+    """Flash-style online-softmax attention: a loop over KV blocks carrying
+    (running max, normalizer, weighted accumulator).  Peak live buffer is
+    O(Sq · KV_BLOCK) instead of O(Sq · Skv).  ``q_offset`` is an int or a
+    (B,) tensor of per-row offsets."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kvh = k.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, sq, kvh, rep, hd)
+    kv_block = max(KV_BLOCK, ((skv // 8) + 127) // 128 * 128)
+    nb = -(-skv // kv_block)
+    dev = q.device
+    m = torch.full((b, kvh, rep, sq), -1e30, device=dev)
+    l = torch.zeros((b, kvh, rep, sq), device=dev)
+    acc = torch.zeros((b, kvh, rep, sq, hd), device=dev)
+    for bi in range(nb):
+        lo, hi = bi * kv_block, min(skv, (bi + 1) * kv_block)
+        msk = causal_mask(sq, hi - lo, q_offset - lo, dev)
+        msk = msk.reshape((-1,) + msk.shape[-2:])              # (B|1,Sq,kv)
+        s_blk = torch.einsum("bqgrd,bkgd->bgrqk", qg, k[:, lo:hi]).float()
+        s_blk = softcap(s_blk * scale, cap)
+        s_blk = s_blk.masked_fill(~msk[:, None, None], -1e30)
+        m_new = torch.maximum(m, s_blk.amax(-1))
+        p = torch.exp(s_blk - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype), v[:, lo:hi])
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+def attention(p, x, cfg, positions, *, cache=None, cache_pos=None):
+    """Returns (out, cache).  ``p`` holds wq/wk/wv/wo.
+
+    positions: (S,) or per row (B, S).  cache: dict(k=(B,Smax,KV,hd), v=…),
+    written in place at ``cache_pos`` (an int or a (B,) tensor of per-row
+    cursors; the write start is clamped into the cache as
+    ``dynamic_update_slice`` clamps it).
+    """
+    b, s, d = x.shape
+    hd = cfg.hd
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    q_offset = 0
+    if cache is not None:
+        last = cache["k"].shape[1] - s
+        if torch.is_tensor(cache_pos):
+            q_offset = cache_pos.reshape(-1).expand(b)
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = (q_offset.clamp(0, last)[:, None]
+                    + torch.arange(s, device=x.device))
+        else:
+            q_offset = int(cache_pos)
+            rows = slice(None)
+            start = min(max(q_offset, 0), last)
+            cols = slice(start, start + s)
+        cache["k"][rows, cols] = k.to(cache["k"].dtype)
+        cache["v"][rows, cols] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+    scale = 1.0 / math.sqrt(hd)
+    if s * k.shape[1] > ONLINE_THRESHOLD ** 2:
+        out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
+                           q_offset=q_offset)
+    else:
+        mask = causal_mask(s, k.shape[1], q_offset, x.device)
+        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
+    return out.reshape(b, s, -1) @ p.wo, cache

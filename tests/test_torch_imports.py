@@ -1,7 +1,7 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
 tool import neither jax nor the JAX package `repro`, so the port installs
-and runs without them: a tiny kaffpa and a tiny kahypar run with both
-blocked."""
+and runs without them: a tiny kaffpa, a tiny kahypar, a reduced zamba2
+forward and one served request run with both blocked."""
 import ast
 import os
 import pathlib
@@ -53,6 +53,17 @@ def test_port_runs_with_jax_and_reference_blocked():
                                        hg.eind, 2, 0.05, seed=1,
                                        device="cpu")
         assert 0 < km1 < 90 and len(hpart) == hg.n
+        import torch
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.serve.batching import serve_requests
+        cfg = get_config("zamba2_2p7b").reduced()
+        model = T.init_params(cfg, 0, device="cpu")
+        logits, _ = model(torch.zeros(1, 5, dtype=torch.long))
+        assert logits.shape == (1, 5, cfg.vocab_pad)
+        (req,) = serve_requests(model, cfg, [[1, 2, 3]], batch_slots=2,
+                                max_len=16, max_new=3)
+        assert req.done and len(req.out) == 3
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok", cut)

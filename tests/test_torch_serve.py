@@ -1,0 +1,134 @@
+"""Port parity for the serve stack on the hybrid (zamba2) model at the
+reduced config: greedy outputs of the port's continuous batcher equal the
+JAX batcher's on the same weights, slot isolation (batched equals solo,
+including reused slots), and the budget and capacity edges of
+tests/test_train_serve.py."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.configs.base import get_config as r_get_config
+from repro.models import transformer as rT
+from repro.serve import batching as rB
+
+from repro_torch import obs
+from repro_torch.configs.base import get_config
+from repro_torch.models import transformer as tT
+from repro_torch.models.weights import params_from_jax
+from repro_torch.serve import batching as tB
+from repro_torch.serve.serve_step import greedy_token
+
+CFG = get_config("zamba2_2p7b").reduced()
+RCFG = r_get_config("zamba2_2p7b").reduced()
+# the prompts of tests/test_train_serve.py::test_batcher_slot_isolation_...
+PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [1], [2, 3, 4, 5, 6]]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = rT.init_params(RCFG, jax.random.PRNGKey(0))
+    model = params_from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
+    return jp, model
+
+
+def _solo(model, prompt, max_new, max_len=32):
+    (req,) = tB.serve_requests(model, CFG, [prompt], batch_slots=1,
+                               max_len=max_len, max_new=max_new)
+    return req.out
+
+
+def test_serve_requests_matches_jax_batcher(weights):
+    """One slot per prompt, so no slot is reused: the port zeroes a reused
+    slot's Mamba2 state and conv tail, which the JAX batcher carries over,
+    so reused slots differ from the reference by design (their correctness
+    is `test_reused_slot_prefill_starts_from_a_clean_state`'s).  Greedy
+    outputs are equal, and each prefill's last-position logits agree with
+    the JAX batcher's prefill (`_step1` token by token on a fresh slot
+    view) within 1e-4 of max |logits|."""
+    jp, model = weights
+    slots = len(PROMPTS)
+    want = rB.serve_requests(jp, RCFG, PROMPTS, batch_slots=slots,
+                             max_len=32, max_new=6)
+    got = tB.serve_requests(model, CFG, PROMPTS, batch_slots=slots,
+                            max_len=32, max_new=6)
+    assert all(r.done for r in got)
+    assert [r.out for r in got] == [r.out for r in want]
+    for r, prompt in zip(got, PROMPTS):
+        view = rT.init_caches(RCFG, 1, 32)
+        for t, tok in enumerate(prompt):
+            lg, view = rB._step1(jp, RCFG, jnp.full((1, 1), tok, jnp.int32),
+                                 view, jnp.int32(t))
+        ref = np.asarray(lg[0])
+        err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
+        assert err < 1e-4, (r.rid, err)
+
+
+def test_batcher_slot_isolation_matches_solo(weights):
+    _, model = weights
+    refs = [_solo(model, p, 6) for p in PROMPTS]
+    reqs = tB.serve_requests(model, CFG, PROMPTS, batch_slots=3, max_len=32,
+                             max_new=6)
+    assert all(r.done for r in reqs)
+    for r, ref in zip(reqs, refs):
+        assert r.out == ref, (r.rid, r.out, ref)
+
+
+def test_reused_slot_prefill_starts_from_a_clean_state(weights):
+    """5 requests through 2 slots: every prefill, in a fresh or a reused
+    slot, ends at the full forward's last-position logits, and every
+    output equals the request served alone.  (The Mamba2 state and conv
+    tail are not indexed by position, so a reused slot must reset them.)"""
+    _, model = weights
+    stream = [(0, [1, 2, 3], 2), (0, [4, 5], 5), (1, [6, 7, 8], 3),
+              (4, [9, 1], 4), (6, [2, 2, 2, 2], 2)]
+    reqs = tB.serve_stream(model, CFG, stream, batch_slots=2, max_len=32)
+    for r, (_, p, mn) in zip(reqs, stream):
+        assert r.done and r.out == _solo(model, p, mn), r.rid
+        full, _ = tT.forward(model, CFG, torch.tensor([p]))
+        want = full[0, -1]
+        assert float((r.logits - want).abs().max()
+                     / want.abs().max()) < 2e-3, r.rid
+
+
+def test_batcher_budget_and_capacity_edges(weights):
+    _, model = weights
+    # max_new=1: exactly the prefill token, slot never occupied afterwards
+    reqs = tB.serve_requests(model, CFG, [[1, 2], [3, 4]], batch_slots=2,
+                             max_len=32, max_new=1)
+    assert all(r.done and len(r.out) == 1 for r in reqs)
+    # max_new=0: done immediately, nothing generated
+    reqs = tB.serve_requests(model, CFG, [[1, 2]], batch_slots=2,
+                             max_len=32, max_new=0)
+    assert reqs[0].done and reqs[0].out == []
+    # generation stops at cache capacity even with budget left
+    reqs = tB.serve_requests(model, CFG, [list(range(1, 13))],
+                             batch_slots=1, max_len=16, max_new=50)
+    assert reqs[0].done and len(reqs[0].out) == 16 - 12
+    # a prompt that cannot fit is rejected loudly, not silently clobbered
+    b = tB.ContinuousBatcher(model, CFG, 1, max_len=8)
+    with pytest.raises(ValueError):
+        b.add(tB.Request(0, np.arange(1, 10, dtype=np.int32), max_new=4))
+
+
+def test_serve_steps_emit_ambient_spans(weights):
+    _, model = weights
+    rec = obs.Recorder("serve")
+    with obs.use(rec):
+        tB.serve_requests(model, CFG, [[1, 2, 3]], batch_slots=1,
+                          max_len=16, max_new=3)
+    names = [e["name"] for e in rec.events if e["ph"] == "B"]
+    assert names.count("serve/prefill_step") == 1
+    assert names.count("serve/decode_step") == 2       # max_new - 1
+
+
+def test_greedy_and_sampled_tokens():
+    logits = torch.tensor([[0.0, 2.0, 1.0], [5.0, -1.0, 0.0]])
+    assert greedy_token(logits).tolist() == [1, 0]
+    with pytest.raises(ValueError, match="generator"):
+        greedy_token(logits, temperature=1.0)
+    g1, g2 = (torch.Generator().manual_seed(3) for _ in range(2))
+    a = greedy_token(logits, 1.0, generator=g1)
+    assert a.dtype == torch.int32 and torch.equal(
+        a, greedy_token(logits, 1.0, generator=g2))
