@@ -13,7 +13,8 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     kernels/csrc/pin_count.cu and kernels/csrc/ssd_scan.cu for sm_90a (one
     nvcc each, started together) and print the build times.
  2. lp_affinity against ``ref.affinity_ref`` at the sweep shapes of
-    tests/test_kernels.py, B = 1 and 4: integer weights exactly, float
+    tests/test_kernels.py plus k = 16 (a register bucket) and k = 33 (the
+    shared-memory histogram), B = 1 and 4: integer weights exactly, float
     weights within 1e-5.
  3. The kaffpa main path: ``interface.kaffpa`` with mode ECO on
     grid2d(1024, 1024) (1,048,576 vertices, 2,095,104 edges), nparts=16,
@@ -47,17 +48,22 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     kernel, the plain version and ``scatter_add_``, beside the bound.
 12. ssd_scan against ``ref.ssd_scan_ref`` at the sweep shapes of
     tests/test_kernels.py::test_ssd_scan_sweep (inputs drawn as that test
-    draws them) within 3e-4 abs and rel.
+    draws them) within 3e-4 abs and rel, and the grouped form
+    (``heads`` in 1, 3 rows sharing one row of B and C) against
+    ``ref.ssd_scan_grouped_ref``; the error plain TF32 products would give
+    is printed beside it.
 13. zamba2-2.7B at full width (the published config: 54 layers, d_model
     2560, 2,341,405,600 f32 parameters made on the card from seed 0): the
     full-sequence forward on tokens (B = 2, L = 2048) on the kernel path
     (``engine=None``) with the SSD launch count zeroed just before and
     read just after (54: one per Mamba layer), and on the plain path
     (``engine="chunked"``, no launch); the logits agree within 1e-3 of
-    max |logits|.  Walls after one warm-up each, and the peak memory.
-    Then the kernel at the forward's shape (BH = 160, L = 2048, P = N =
-    64, chunk 128) on the first layer's real inputs, held to 1e-3 of
-    max |y| against the exact recurrence.
+    max |logits|.  Walls after one warm-up each, and each path's peak
+    memory.  Then the kernel at the forward's shape (BH = 160, L = 2048,
+    P = N = 64, chunk 128) on the first layer's real inputs, grouped (80
+    heads per row of B and C, as the main path calls it) and per row (B
+    and C expanded), each held to 1e-3 of max |y| against the exact
+    recurrence; plain TF32's error is printed beside them.
 14. Serving: ``serve_stream`` with 6 requests (prompts of 16–64 tokens,
     16 new tokens each, arrival ticks 0–8, 4 slots, max_len 256): every
     request finishes with 16 tokens; wall, tokens/s and the SSD launch
@@ -66,8 +72,11 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     ``prefill_step``)
     against the kernel-path forward on its prompt at the last position,
     within 2e-3 of max |logits|, and whether the argmax agrees.
-16. ssd_scan timed at the forward's shape beside the plain recurrence,
-    the chunked torch engine and the bound.
+16. ssd_scan timed at the forward's shape in both forms (3xTF32, and
+    plain TF32 for comparison) beside the plain recurrence, the chunked
+    torch engines (``ssd_chunked``, ``ssd_chunked_grouped``) and the
+    bounds, and each form's device time per launch (state pass, chunk
+    pass, output pass) by torch.profiler.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -91,12 +100,18 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
-SWEEP = [(128, 8, 2), (256, 24, 5), (128, 16, 130), (384, 40, 17)]
+# (n_pad, dmax, k) of tests/test_kernels.py's sweep, plus k = 16 (inside
+# the kernel's register buckets, the main path's k) and k = 33 (just above
+# them: the shared-memory histogram)
+SWEEP = [(128, 8, 2), (256, 24, 5), (128, 16, 130), (384, 40, 17),
+         (256, 8, 16), (256, 16, 33)]
 # (vertices, nets, k) of tests/test_hypergraph.py's pin-count sweep, + k=8
 PIN_SWEEP = [(100, 150, 2), (300, 500, 5), (64, 90, 130), (200, 260, 8)]
 # (BH, L, P, N, chunk) of tests/test_kernels.py::test_ssd_scan_sweep
 SSD_SWEEP = [(2, 128, 8, 4, 64), (3, 256, 16, 8, 128), (1, 64, 32, 16, 32),
              (2, 200, 8, 8, 64)]
+# heads per row of B and C in phase 12's grouped form
+SSD_HEADS = (1, 3)
 
 
 class SmokeError(RuntimeError):
@@ -417,6 +432,66 @@ def ssd_sweep_inputs(np, bh, l, p, n):
     return x, ld, b, c
 
 
+def ssd_grouped_inputs(np, g, heads, l, p, n):
+    """The sweep's inputs in the grouped form: x and log-decay for g *
+    heads rows, B and C for g groups (numpy arrays)."""
+    rng = np.random.default_rng(g * heads * l + p)
+    x = rng.standard_normal((g * heads, l, p)).astype(np.float32)
+    ld = (-0.05 - 0.5 * rng.random((g * heads, l))).astype(np.float32)
+    b = (rng.standard_normal((g, l, n)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((g, l, n)) * 0.3).astype(np.float32)
+    return x, ld, b, c
+
+
+def ssd_excess(got, want) -> float:
+    """max(|got − want| − 3e-4 |want|): at most 3e-4 passes the sweep's
+    abs + rel tolerance."""
+    return float(((got - want).abs() - 3e-4 * want.abs()).max())
+
+
+def ssd_bound(bh, l, p, n, q, groups):
+    """(ms, by, readings) for the SSD scan at one shape: the bytes (x, y,
+    log-decay, and B and C per group) against the operations the kernel
+    does, the chunked form's FLOP over the causal half at the 3xTF32 rate
+    (three TF32 products each): C·Bᵀ once per (group, chunk), G·X, the
+    chunk states and the off-diagonal term per row.  ``readings`` (for the
+    log line only: worked out from peak rates, not measured) also holds the
+    exact recurrence's FLOP at f32 and the chunked form's at plain TF32."""
+    tri = q * (q + 1) // 2
+    nbytes = 4 * (2 * bh * l * p + bh * l + 2 * groups * l * n)
+    chunked = (groups * (l // q) * 2 * tri * n
+               + bh * (l // q) * (2 * tri * p + 4 * q * n * p))
+    recurrence = bh * l * 5 * n * p
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 3 * chunked / PEAK_TF32_PER_S
+    readings = {"bytes": nbytes, "bytes_ms": t_bytes * 1e3,
+                "chunked_flop": chunked,
+                "chunked_3xtf32_ms": t_ops * 1e3,
+                "chunked_tf32_ms": chunked / PEAK_TF32_PER_S * 1e3,
+                "recurrence_flop": recurrence,
+                "recurrence_f32_ms": recurrence / PEAK_F32_PER_S * 1e3}
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", readings)
+
+
+def ssd_launch_ms(torch, call, calls=10) -> tuple:
+    """(mean device ms of each of the SSD scan's kernels, device launches
+    per call) over ``calls`` calls, both as torch.profiler saw them."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    seen = [(name, ev) for ev in prof.key_averages()
+            for name in ("ssd_state_kernel", "ssd_pass_kernel",
+                         "ssd_out_kernel") if name in ev.key]
+    return ({name: ev.device_time_total / ev.count / 1e3
+             for name, ev in seen},
+            sum(ev.count for _, ev in seen) / calls)
+
+
 def max_rel(torch, got, want) -> tuple:
     """(max |got − want|, that over max |want|)."""
     err = float((got - want).abs().max())
@@ -458,8 +533,10 @@ def run_forward(torch, T, model, cfg, tokens, engine):
             int(obs.metrics.get(LAUNCHES)))
 
 
-def zamba2_phases(torch, np, dev, card) -> dict:
-    """Phases 12-16; returns the ssd_scan row of the kernels line."""
+def zamba2_phases(torch, np, dev, card) -> list:
+    """Phases 12-16; returns the ssd_scan rows of the kernels line (the
+    per-row form, comparable with earlier runs, and the grouped form the
+    main path runs)."""
     from repro_torch import obs
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops, ref
@@ -470,7 +547,7 @@ def zamba2_phases(torch, np, dev, card) -> dict:
     from repro_torch.serve.batching import serve_stream
 
     # -- 12. kernel vs plain version at the sweep shapes -------------------
-    max_err = 0.0
+    max_err = {"per-row": 0.0, "grouped": 0.0}   # each form's largest |err|
     for (bh, l, p, n, chunk) in SSD_SWEEP:
         ins = [torch.from_numpy(a).to(dev)
                for a in ssd_sweep_inputs(np, bh, l, p, n)]
@@ -478,12 +555,29 @@ def zamba2_phases(torch, np, dev, card) -> dict:
         want = ref.ssd_scan_ref(*ins)
         torch.cuda.synchronize()
         check(got.shape == want.shape, f"ssd_scan shape {tuple(got.shape)}")
-        excess = float(((got - want).abs() - 3e-4 * want.abs()).max())
+        excess = ssd_excess(got, want)
         check(excess <= 3e-4, f"ssd_scan disagrees with ssd_scan_ref at "
               f"{(bh, l, p, n, chunk)}: |err| − 3e-4|want| = {excess}")
-        max_err = max(max_err, float((got - want).abs().max()))
-    log(f"sweep: ssd_scan == ssd_scan_ref at {len(SSD_SWEEP)} shapes within "
-        f"3e-4 abs + rel (max |err| {max_err:g})")
+        max_err["per-row"] = max(max_err["per-row"],
+                                 float((got - want).abs().max()))
+        for heads in SSD_HEADS:   # the grouped form: B, C per `heads` rows
+            gins = [torch.from_numpy(a).to(dev)
+                    for a in ssd_grouped_inputs(np, bh, heads, l, p, n)]
+            got = ops.ssd_scan(*gins, chunk=chunk, heads=heads)
+            want = ref.ssd_scan_grouped_ref(*gins, heads)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape,
+                  f"grouped ssd_scan shape {tuple(got.shape)}")
+            excess = ssd_excess(got, want)
+            check(excess <= 3e-4, f"grouped ssd_scan disagrees with "
+                  f"ssd_scan_grouped_ref at {(bh, l, p, n, chunk)} heads="
+                  f"{heads}: |err| − 3e-4|want| = {excess}")
+            max_err["grouped"] = max(max_err["grouped"],
+                                     float((got - want).abs().max()))
+    log(f"sweep: ssd_scan == ssd_scan_ref at {len(SSD_SWEEP)} shapes, per "
+        f"row and grouped (heads {list(SSD_HEADS)}), within 3e-4 abs + rel "
+        f"(max |err| per row {max_err['per-row']:g}, grouped "
+        f"{max_err['grouped']:g})")
 
     # -- 13. zamba2-2.7B forward at full width -----------------------------
     cfg = get_config("zamba2_2p7b")
@@ -499,23 +593,24 @@ def zamba2_phases(torch, np, dev, card) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen,
                            device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    walls = {}
+    walls, peaks = {}, {}
     for engine in (None, "chunked"):
         run_forward(torch, T, model, cfg, tokens, engine)     # warm-up
+        torch.cuda.reset_peak_memory_stats()
         walls[engine] = run_forward(torch, T, model, cfg, tokens, engine)
+        peaks[engine] = torch.cuda.max_memory_allocated()
     logits, wall_k, launches_k = walls[None]
     logits_c, wall_c, launches_c = walls["chunked"]
-    peak = torch.cuda.max_memory_allocated()
     check(logits.shape == (bsz, seq, cfg.vocab_pad),
           f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     err_abs, err_rel = max_rel(torch, logits, logits_c)
     log(f"main path zamba2 forward B={bsz} L={seq}: kernel path wall_s="
-        f"{wall_k:.4f} launches={launches_k}; chunked path wall_s="
-        f"{wall_c:.4f} launches={launches_c}; logits max |err| {err_abs:g} "
-        f"rel {err_rel:g} (max |logits| {float(logits.abs().max()):g}); "
-        f"peak memory {peak} B [{card}]")
+        f"{wall_k:.4f} launches={launches_k} (grouped ssd_scan calls); "
+        f"chunked path wall_s={wall_c:.4f} launches={launches_c}; logits "
+        f"max |err| {err_abs:g} rel {err_rel:g} (max |logits| "
+        f"{float(logits.abs().max()):g}); peak memory {peaks[None]} B kernel "
+        f"path, {peaks['chunked']} B chunked path [{card}]")
     check(launches_k == cfg.n_layers, f"kernel path launched ssd_scan "
           f"{launches_k} times, expected {cfg.n_layers}")
     check(launches_c == 0, "engine='chunked' launched ssd_scan")
@@ -523,24 +618,33 @@ def zamba2_phases(torch, np, dev, card) -> dict:
     del logits_c, walls
 
     # the kernel on the first Mamba layer's real inputs (the forward's
-    # shape), against the exact recurrence
+    # shape), grouped as the main path calls it and per row with B and C
+    # expanded to every head, against the exact recurrence
     blk = model.blocks[0]
+    nh = cfg.ssm_nheads
     with torch.no_grad():
         x0 = model.embed[tokens] * math.sqrt(cfg.d_model)
         _, _, x_eff, ld, bmat, cmat, _ = M2.scan_inputs(
             blk.mamba, rmsnorm(x0, blk.ln1, cfg.norm_eps), cfg)
-        xs, lds, bs, cs = M2.merge_heads(x_eff, ld, bmat, cmat)
-    y = ops.ssd_scan(xs, lds, bs, cs)
+        xs, lds, bg, cg = M2.merge_heads(x_eff, ld, bmat, cmat)
+    bs, cs = (m[:, None].expand(bsz, nh, seq, m.shape[-1])
+              .reshape(bsz * nh, seq, m.shape[-1]).contiguous()
+              for m in (bg, cg))
     y_ref = ref.ssd_scan_ref(xs, lds, bs, cs)
-    torch.cuda.synchronize()
-    y_abs, y_rel = max_rel(torch, y, y_ref)
     s_min = float(torch.cumsum(lds.reshape(lds.shape[0], -1, 128),
                                -1).min())
-    log(f"ssd_scan at the forward's shape {tuple(xs.shape)} N="
-        f"{bs.shape[-1]}: max |err| {y_abs:g}, rel to max |y| {y_rel:g} "
-        f"(in-chunk log-decay cumsum down to {s_min:g})")
-    check(y_rel <= 1e-3, f"ssd_scan at the forward's shape: rel {y_rel}")
-    max_err = max(max_err, y_abs)
+    model_rel = {}
+    for form, y in (("grouped", ops.ssd_scan(xs, lds, bg, cg, heads=nh)),
+                    ("per-row", ops.ssd_scan(xs, lds, bs, cs))):
+        torch.cuda.synchronize()
+        y_abs, y_rel = max_rel(torch, y, y_ref)
+        model_rel[form] = y_rel
+        log(f"ssd_scan ({form}) at the forward's shape {tuple(xs.shape)} N="
+            f"{bs.shape[-1]}: max |err| {y_abs:g}, rel to max |y| {y_rel:g} "
+            f"(in-chunk log-decay cumsum down to {s_min:g})")
+        check(y_rel <= 1e-3, f"ssd_scan ({form}) at the forward's shape: "
+              f"rel {y_rel}")
+        max_err[form] = max(max_err[form], y_abs)
 
     # -- 14. serving ---------------------------------------------------------
     rng = np.random.default_rng(2)
@@ -586,41 +690,61 @@ def zamba2_phases(torch, np, dev, card) -> dict:
         f"{agree}/{len(reqs)}")
     check(worst <= 2e-3, f"batcher prefill and forward differ: {worst}")
 
-    # -- 16. the kernel timed at the forward's shape ----------------------
-    ms = cuda_ms(torch, lambda: ops.ssd_scan(xs, lds, bs, cs))
-    plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(xs, lds, bs, cs),
-                       iters=3, warmup=1)
-    chunked_ms = cuda_ms(torch, lambda: M2.ssd_chunked(xs, lds, bs, cs),
-                         iters=5)
+    # -- 16. the kernel timed at the forward's shape, both forms ------------
     bh, l, p = xs.shape
     n, q = bs.shape[-1], 128
-    tri = q * (q + 1) // 2
-    nbytes = 4 * (xs.numel() + lds.numel() + bs.numel() + cs.numel()
-                  + y.numel())
-    # the function's least work is the fewer of the two algorithms' FLOP:
-    # the chunked form over the causal half, or the recurrence's 5 N P per
-    # step (3 N P for h = decay h + b x^T, 2 N P for y = h^T c)
-    chunked_flops = bh * (l // q) * (2 * tri * n + 2 * tri * p
-                                     + 4 * q * n * p)
-    flops = min(chunked_flops, bh * l * 5 * n * p)
-    bms, by = bound_ms(nbytes, flops)
-    tf32_ms = chunked_flops / PEAK_TF32_PER_S * 1e3
-    log(f"ssd_scan BH={bh} L={l} P={p} N={n} chunk={q}: kernel {ms:.4f} "
-        f"ms, plain (sequential recurrence) {plain_ms:.4f} ms, ssd_chunked "
-        f"(composed torch ops) {chunked_ms:.4f} ms, no single PyTorch call; "
-        f"bound {bms:.4f} ms by {by} ({nbytes} B at "
-        f"{PEAK_BYTES_PER_S / 1e12} TB/s, {flops} FLOP at "
-        f"{PEAK_F32_PER_S / 1e12} TFLOP/s f32; the chunked form's "
-        f"{chunked_flops} FLOP would take {tf32_ms:.4f} ms at "
-        f"{PEAK_TF32_PER_S / 1e12} TFLOP/s TF32) [{card}]")
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:27",
-            "launches": launches_k, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "chunked_ms": chunked_ms,
-            "rel_err": y_rel,
-            "shape": [bh, l, p, n, q]}
+    plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(xs, lds, bs, cs),
+                       iters=3, warmup=1)
+    x4, ld3 = (xs.reshape(bsz, nh, l, p), lds.reshape(bsz, nh, l))
+    # the per-row form, comparable with earlier runs, is off the main path:
+    # the forward makes only grouped calls
+    forms = {
+        "per-row": dict(
+            name="ssd_scan", groups=bh, launches=0,
+            kernel=lambda: ops.ssd_scan(xs, lds, bs, cs),
+            chunked=lambda: M2.ssd_chunked(xs, lds, bs, cs),
+            chunked_name="ssd_chunked"),
+        "grouped": dict(
+            name="ssd_scan_grouped", groups=bsz, launches=launches_k,
+            kernel=lambda: ops.ssd_scan(xs, lds, bg, cg, heads=nh),
+            chunked=lambda: M2.ssd_chunked_grouped(x4, ld3, bg, cg),
+            chunked_name="ssd_chunked_grouped"),
+    }
+    rows = []
+    for form, f in forms.items():
+        ms = cuda_ms(torch, f["kernel"])
+        chunked_ms = cuda_ms(torch, f["chunked"], iters=5)
+        bms, by, rd = ssd_bound(bh, l, p, n, q, f["groups"])
+        log(f"ssd_scan {form} BH={bh} heads={bh // f['groups']} L={l} P={p} "
+            f"N={n} chunk={q}: kernel {ms:.4f} ms (3xTF32), plain "
+            f"(sequential recurrence) {plain_ms:.4f}"
+            f" ms, {f['chunked_name']} (composed torch ops) {chunked_ms:.4f} "
+            f"ms, no single PyTorch call; bound {bms:.4f} ms by {by} "
+            f"({rd['bytes']} B: {rd['bytes_ms']:.4f} ms at "
+            f"{PEAK_BYTES_PER_S / 1e12} TB/s; the chunked form's "
+            f"{rd['chunked_flop']} FLOP as 3xTF32 {rd['chunked_3xtf32_ms']:.4f}"
+            f" ms, as plain TF32 {rd['chunked_tf32_ms']:.4f} ms at "
+            f"{PEAK_TF32_PER_S / 1e12} TFLOP/s; the recurrence's "
+            f"{rd['recurrence_flop']} FLOP at f32 "
+            f"{rd['recurrence_f32_ms']:.4f} ms at {PEAK_F32_PER_S / 1e12} "
+            f"TFLOP/s) [{card}]")
+        launch_ms, per_call = ssd_launch_ms(torch, f["kernel"])
+        log(f"ssd_scan {form} device launches per call {per_call:g}, device "
+            f"ms per launch (torch.profiler, 10 calls): "
+            f"{json.dumps(launch_ms)} [{card}]")
+        rows.append({"name": f["name"], "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "replaces": "src/repro/kernels/ssd_scan.py:27",
+                     "launches": f["launches"],
+                     "max_abs_err": max_err[form],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None, "form": form,
+                     "main_path": f["launches"] > 0,
+                     "chunked_ms": chunked_ms, "rel_err": model_rel[form],
+                     "device_launches_per_call": per_call,
+                     "launch_ms": launch_ms,
+                     "shape": [bh, l, p, n, q, bh // f["groups"]]})
+    return rows
 
 
 def main() -> int:
@@ -768,7 +892,7 @@ def main() -> int:
 
     main = rows_out[1]    # level-0 refinement launches one row
     pin_row = kahypar_phases(torch, np, dev, card)
-    ssd_row = zamba2_phases(torch, np, dev, card)
+    ssd_rows = zamba2_phases(torch, np, dev, card)
     log(json.dumps({"kernels": [{
         "name": "lp_affinity", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lp_affinity.cu",
@@ -777,7 +901,7 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "shape": [1, n_pad, dmax, k_main]}, pin_row, ssd_row]}))
+        "shape": [1, n_pad, dmax, k_main]}, pin_row, *ssd_rows]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

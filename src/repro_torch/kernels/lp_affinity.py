@@ -2,7 +2,12 @@
 
 Replaces the TPU kernel `_affinity_kernel` / `affinity_pallas` of
 ``src/repro/kernels/lp_affinity.py`` (:30 / :64).  The source is
-``csrc/lp_affinity.cu``; its header states the design and the bound.
+``csrc/lp_affinity.cu``; its header states the design and the bound: a
+block stages 128 vertices' ELL rows in shared memory once for all B label
+rows, sums each (row, vertex) histogram on chip (registers for k <= 32,
+a [class][thread] shared-memory histogram above) and writes each warp's
+output tile coalesced.  It adds each sum's slots in slot order, so it
+equals ``ref.affinity_ref`` bit for bit.  Device memory bounds it.
 Built at first use by ``kernels/build.py`` (``nvcc`` for ``sm_90a``,
 ``ctypes``); a failed build raises.
 """
@@ -36,7 +41,8 @@ def affinity_cuda(nbr: torch.Tensor, wgt: torch.Tensor, labels: torch.Tensor,
                   k: int) -> torch.Tensor:
     """Launch the kernel: int32 nbr (n_pad, dmax), f32 wgt (n_pad, dmax),
     int32 labels (B, n_pad) → f32 aff (B, n_pad, k), on ``nbr``'s CUDA
-    device and PyTorch's current stream.  Raises on anything else."""
+    device and PyTorch's current stream.  dmax must be a multiple of 4 and
+    nbr and wgt 16-byte aligned.  Raises on anything else."""
     if nbr.device.type != "cuda":
         raise ValueError(f"affinity_cuda needs CUDA tensors, got {nbr.device}")
     dev = nbr.device
@@ -52,6 +58,12 @@ def affinity_cuda(nbr: torch.Tensor, wgt: torch.Tensor, labels: torch.Tensor,
                          f"match n_pad={n_pad}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
+    if dmax % 4:
+        raise ValueError(f"dmax={dmax} must be a multiple of 4 "
+                         f"(ops.lp_affinity pads it)")
+    for name, t in (("nbr", nbr), ("wgt", wgt)):   # read 16 B at a time
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     batch = labels.shape[0]
     out = torch.empty((batch, n_pad, k), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -36,9 +36,14 @@ PADDING_CONTRACT = {
 
 def lp_affinity(nbr: torch.Tensor, wgt: torch.Tensor, labels: torch.Tensor,
                 k: int) -> torch.Tensor:
-    """ELL graph + batched labels (B, n_pad) → (B, n_pad, k) affinities."""
+    """ELL graph + batched labels (B, n_pad) → (B, n_pad, k) affinities.
+
+    On a CUDA tensor dmax is padded to a multiple of 4 with zero-weight
+    slots (inert, see ``PADDING_CONTRACT``) for the kernel's 16-byte
+    loads."""
     if nbr.device.type == "cpu":
         return _ref.affinity_ref(nbr, wgt, labels, k)
+    nbr, wgt = (pad_to(t, 1, 4).contiguous() for t in (nbr, wgt))
     return _lpk.affinity_cuda(nbr, wgt, labels.contiguous(), k)
 
 
@@ -77,22 +82,29 @@ def pad_to(t: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
 
 
 def ssd_scan(x: torch.Tensor, logdecay: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
-    """Mamba2 SSD scan: (BH, L, P) × (BH, L) × (BH, L, N)² → (BH, L, P).
+             c: torch.Tensor, chunk: int = 128, heads: int = 1) -> torch.Tensor:
+    """Mamba2 SSD scan: x (BH, L, P), logdecay (BH, L), b and c
+    (BH / heads, L, N) → y (BH, L, P).
 
-    L is padded with zero steps to a multiple of ``chunk`` (inert, see
-    ``PADDING_CONTRACT``).  A CPU tensor takes the exact recurrence
-    ``ref.ssd_scan_ref``; a CUDA tensor launches the kernel, with N and P
-    zero-padded to multiples of 4 (zero state rows and columns change no
-    real output).
+    Rows of x come in groups of ``heads`` consecutive rows that share one
+    row of b and c (a Mamba2 layer's heads share its single B/C group);
+    ``heads=1`` is the per-row form.  L is padded with zero steps to a
+    multiple of ``chunk`` (inert, see ``PADDING_CONTRACT``).  A CPU tensor
+    takes the exact recurrence (``ref.ssd_scan_grouped_ref``: b and c
+    expanded to every head); a CUDA tensor launches the kernels on the
+    un-expanded b and c, with N zero-padded to a multiple of 16 and P of 8
+    (zero state rows and columns change no real output).
     """
     l, p = x.shape[1], x.shape[2]
+    if heads < 1 or x.shape[0] != b.shape[0] * heads:
+        raise ValueError(f"x has {x.shape[0]} rows, b {b.shape[0]}: not "
+                         f"{heads} heads per row of b")
     x, logdecay, b, c = (pad_to(t, 1, chunk) for t in (x, logdecay, b, c))
     if x.device.type == "cpu":
-        y = _ref.ssd_scan_ref(x, logdecay, b, c)
+        y = _ref.ssd_scan_grouped_ref(x, logdecay, b, c, heads)
     else:
-        x = pad_to(x, 2, 4)
-        b, c = pad_to(b, 2, 4), pad_to(c, 2, 4)
-        y = _ssdk.ssd_scan_cuda(x.contiguous(), logdecay.contiguous(),
-                                b.contiguous(), c.contiguous(), chunk)
+        x = pad_to(x, 2, _ssdk.P_MULT).contiguous()
+        b, c = (pad_to(t, 2, _ssdk.N_MULT).contiguous() for t in (b, c))
+        y = _ssdk.ssd_scan_cuda(x, logdecay.contiguous(), b, c, chunk,
+                                heads)
     return y[:, :l, :p]

@@ -80,3 +80,15 @@ def ssd_scan_ref(x: torch.Tensor, logdecay: torch.Tensor, b: torch.Tensor,
     if not ys:
         return torch.zeros(bh, 0, p, dtype=torch.float32, device=x.device)
     return torch.stack(ys, 1)
+
+
+def ssd_scan_grouped_ref(x: torch.Tensor, logdecay: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor,
+                         heads: int) -> torch.Tensor:
+    """``ssd_scan_ref`` with b and c shared by groups of ``heads``
+    consecutive rows of x: b/c (BH / heads, L, N), expanded to every row."""
+    if heads != 1:
+        g, l, n = b.shape
+        b, c = (m[:, None].expand(g, heads, l, n).reshape(g * heads, l, n)
+                for m in (b, c))
+    return ssd_scan_ref(x, logdecay, b, c)

@@ -5,10 +5,12 @@ Three interchangeable scan engines (tests assert equivalence):
   * ``"chunked"`` — ``ssd_chunked_grouped``: the parallel chunked
     formulation in torch, all intra-chunk terms as batched matmuls plus a
     loop over chunk summaries.  The CPU default.
-  * ``"kernel"`` — ``kernels.ops.ssd_scan``: the hand-written CUDA kernel
-    on a CUDA tensor (the counterpart of the reference's ``"pallas"``),
+  * ``"kernel"`` — ``kernels.ops.ssd_scan(..., heads=nheads)``: the
+    hand-written CUDA kernels on a CUDA tensor (the counterpart of the
+    reference's ``"pallas"``), reading the head-shared B/C as they are;
     the exact recurrence on a CPU tensor.  The CUDA default.
-  * ``"ref"`` — ``kernels.ref.ssd_scan_ref``: the exact sequential oracle.
+  * ``"ref"`` — ``kernels.ref.ssd_scan_grouped_ref``: the exact sequential
+    oracle (B/C expanded to every head).
 
 Decode keeps an (nheads, N, P) state and a conv tail; one step is O(1) in
 sequence length.
@@ -147,17 +149,17 @@ def scan_inputs(p, x, cfg, conv_state=None):
 
 
 def merge_heads(x_eff, logdecay, bmat, cmat):
-    """The scan's (BH, ·) layout of the kernel and oracle engines: batch
-    and heads merged, B/C broadcast to every head (materialised).
+    """The scan's grouped (BH, ·) layout of the kernel and oracle engines:
+    batch and heads merged, the heads of one batch row consecutive, and B/C
+    left un-broadcast — every head of a batch row shares its (L, N) row
+    (``ops.ssd_scan(..., heads=nh)``), so no (BH, L, N) copy is made.
     x_eff (B,L,nh,hd), logdecay (B,L,nh), bmat/cmat (B,L,N) → x (BH,L,hd),
-    logdecay (BH,L), b/c (BH,L,N), all contiguous f32."""
+    logdecay (BH,L), b/c (B,L,N), all contiguous f32."""
     b_sz, l, nh, hd = x_eff.shape
-    n = bmat.shape[-1]
     xe = x_eff.permute(0, 2, 1, 3).reshape(b_sz * nh, l, hd)
     ld = logdecay.permute(0, 2, 1).reshape(b_sz * nh, l)
-    bm, cm = (m.float()[:, None].expand(b_sz, nh, l, n)
-              .reshape(b_sz * nh, l, n) for m in (bmat, cmat))
-    return xe.contiguous(), ld.contiguous(), bm.contiguous(), cm.contiguous()
+    return (xe.contiguous(), ld.contiguous(), bmat.float().contiguous(),
+            cmat.float().contiguous())
 
 
 def mamba2_mixer(p, x, cfg, state=None, engine: Optional[str] = None):
@@ -187,8 +189,9 @@ def mamba2_mixer(p, x, cfg, state=None, engine: Optional[str] = None):
                                     logdecay.permute(0, 2, 1),  # (B,H,L)
                                     bmat.float(), cmat.float())
         else:
-            scan = ops.ssd_scan if engine == "kernel" else ref.ssd_scan_ref
-            y = scan(*merge_heads(x_eff, logdecay, bmat, cmat))
+            scan = (ops.ssd_scan if engine == "kernel"
+                    else ref.ssd_scan_grouped_ref)
+            y = scan(*merge_heads(x_eff, logdecay, bmat, cmat), heads=nh)
             y = y.reshape(b_sz, nh, l, hd)
         y = y.permute(0, 2, 1, 3)
         new_state = None

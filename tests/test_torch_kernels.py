@@ -108,6 +108,32 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+# one k in each register bucket (4, 8, 16, 32), one just above them and
+# the sweep's k = 130 (shared-memory histogram, two class slices); dmax 40
+# and 1024 take more than one staged chunk, and ops.lp_affinity pads dmax
+# 6 to 8
+CUDA_SHAPES = SHAPES + [(256, 8, 4), (256, 8, 8), (300, 8, 32),
+                        (256, 16, 33), (128, 1024, 8), (200, 6, 16),
+                        (128, 1024, 40)]
+
+
+def test_cuda_kernel_matches_plain_version():
+    """On the card only: the kernel against ``ref.affinity_ref`` at the
+    sweep shapes and every k bucket, bit for bit on integer and on float
+    weights (both add each sum's slots in the same order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the affinity kernel runs only there")
+    dev = torch.device("cuda", 0)
+    for (n_pad, dmax, k) in CUDA_SHAPES:
+        for integer in (True, False):
+            nbr, wgt, labels = (torch.from_numpy(a).to(dev) for a in
+                                _inputs(n_pad, dmax, k, integer))
+            for b in (1, BATCH):
+                got = tops.lp_affinity(nbr, wgt, labels[:b], k)
+                want = tref.affinity_ref(nbr, wgt, labels[:b], k)
+                assert torch.equal(got, want), (n_pad, dmax, k, integer, b)
+
+
 def test_kernel_source_exports_the_bound_symbol():
     src = tlpk.SOURCE.read_text()
     assert 'extern "C" int lp_affinity_launch(' in src

@@ -116,30 +116,103 @@ def test_ssd_scan_takes_any_n_and_p():
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
 
 
+def test_merge_heads_keeps_b_and_c_unbroadcast():
+    """The kernel engine's layout: heads merged into rows, B and C left
+    (B, L, N), and the grouped call equals the per-row call on B and C
+    expanded to every head."""
+    rng = np.random.default_rng(5)
+    bsz, l, nh, hd, n = 2, 40, 3, 8, 4
+    x_eff = torch.from_numpy(rng.standard_normal(
+        (bsz, l, nh, hd)).astype(np.float32))
+    ld = torch.from_numpy((-0.1 - rng.random((bsz, l, nh))).astype(
+        np.float32))
+    bm, cm = (torch.from_numpy(rng.standard_normal((bsz, l, n)).astype(
+        np.float32)) for _ in range(2))
+    xs, lds, bs, cs = tM2.merge_heads(x_eff, ld, bm, cm)
+    assert xs.shape == (bsz * nh, l, hd) and lds.shape == (bsz * nh, l)
+    assert bs.shape == (bsz, l, n) and cs.shape == (bsz, l, n)
+    got = tops.ssd_scan(xs, lds, bs, cs, chunk=16, heads=nh)
+    flat = [m[:, None].expand(bsz, nh, l, n).reshape(bsz * nh, l, n)
+            for m in (bs, cs)]
+    assert torch.equal(got, tops.ssd_scan(xs, lds, *flat, chunk=16))
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     x, ld, b, c = (torch.from_numpy(a) for a in _inputs(2, 128, 8, 4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tssd.ssd_scan_cuda(x, ld, b, c, chunk=64)
 
 
+def _grouped_inputs(g, heads, l, p, n, seed):
+    """x and log-decay per row, B and C per group of ``heads`` rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((g * heads, l, p)).astype(np.float32)
+    ld = (-0.05 - 0.5 * rng.random((g * heads, l))).astype(np.float32)
+    b = (rng.standard_normal((g, l, n)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((g, l, n)) * 0.3).astype(np.float32)
+    return x, ld, b, c
+
+
+# (groups, heads, L, P, N, chunk): L = 200 is not a multiple of the chunk
+GROUPED = [(2, 1, 128, 8, 4, 64), (1, 3, 200, 16, 8, 64),
+           (2, 4, 96, 32, 16, 32), (1, 3, 256, 8, 8, 128)]
+
+
+@pytest.mark.parametrize("g,heads,l,p,n,chunk", GROUPED)
+def test_grouped_plain_version_matches_oracle(g, heads, l, p, n, chunk):
+    """``ops.ssd_scan(..., heads=h)`` on the CPU against the JAX package's
+    sequential oracle on B and C broadcast to every head with numpy."""
+    x, ld, b, c = _grouped_inputs(g, heads, l, p, n, seed=g + heads + l)
+    got = tops.ssd_scan(*(torch.from_numpy(a) for a in (x, ld, b, c)),
+                        chunk=chunk, heads=heads).numpy()
+    bb, cc = (np.repeat(m, heads, axis=0) for m in (b, c))
+    want = np.asarray(rref.ssd_scan_ref(*(jnp.asarray(a)
+                                          for a in (x, ld, bb, cc))))
+    assert got.shape == (g * heads, l, p) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_grouped_call_rejects_a_mismatched_group():
+    x, ld, b, c = (torch.from_numpy(a)
+                   for a in _grouped_inputs(2, 3, 64, 8, 4, seed=0))
+    with pytest.raises(ValueError, match="heads"):
+        tops.ssd_scan(x, ld, b, c, chunk=32, heads=2)
+
+
 def test_kernel_source_and_shared_memory_budget():
     src = tssd.SOURCE.read_text()
     assert 'extern "C" int ssd_scan_launch(' in src
     assert "sm_90a" in " ".join(tssd._build.NVCC_FLAGS)
-    # zamba2's forward shape fits one block's shared memory; a chunk of 256
-    # at the same state does not, and the wrapper says so before launching
-    assert tssd.smem_bytes(128, 64, 64) == 217600 <= tssd.MAX_SMEM_BYTES
-    assert tssd.smem_bytes(256, 64, 64) > tssd.MAX_SMEM_BYTES
+    # zamba2's forward shape: the state pass holds B and two X buffers of
+    # one chunk (111,616 B, two blocks per SM), the output pass C, C Bᵀ and
+    # two (X, h_prev) buffers, the first over B (214,016 B, one block per
+    # SM); a chunk of 256 at the same state does not fit, and the wrapper
+    # says so before launching
+    assert tssd.smem_bytes(128, 64, 64) == {"state": 111616, "out": 214016}
+    assert max(tssd.smem_bytes(128, 64, 64).values()) <= tssd.MAX_SMEM_BYTES
+    assert max(tssd.smem_bytes(256, 64, 64).values()) > tssd.MAX_SMEM_BYTES
 
 
-def test_cuda_kernel_matches_plain_version():
-    """On the card only: the kernel against ``ref.ssd_scan_ref`` at the
-    sweep shapes (the CUDA kernel has no CPU mode)."""
+@pytest.fixture
+def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the SSD kernel runs only there")
-    dev = torch.device("cuda", 0)
+        pytest.skip("needs a CUDA card: the SSD kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def test_cuda_kernel_matches_plain_version(cuda_device):
+    """On the card only: the kernels against the exact recurrence at the
+    sweep shapes, per-row and grouped (the CUDA kernels have no CPU
+    mode)."""
     for (bh, l, p, n, chunk) in SWEEP:
-        ins = [torch.from_numpy(a).to(dev) for a in _inputs(bh, l, p, n)]
+        ins = [torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(bh, l, p, n)]
         got = tops.ssd_scan(*ins, chunk=chunk)
         want = tref.ssd_scan_ref(*ins)
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    for (g, heads, l, p, n, chunk) in GROUPED:
+        ins = [torch.from_numpy(a).to(cuda_device) for a in
+               _grouped_inputs(g, heads, l, p, n, seed=g + heads + l)]
+        got = tops.ssd_scan(*ins, chunk=chunk, heads=heads)
+        want = tref.ssd_scan_grouped_ref(*ins, heads)
         torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
