@@ -31,27 +31,41 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     (``scatter_add_``, timed only), beside the least time the card could
     take for the bytes this run's inputs need (padding slots' ids are not
     counted: no version needs them).
- 7. pin_count against ``ref.pin_count_ref`` at the sweep shapes of
-    tests/test_hypergraph.py plus k = 8, B = 1 and 4: 0/1 masks exactly,
-    float masks within 1e-5.
+ 7. pin_count's two entries against their plain versions, B = 1 and 4,
+    0/1 masks exactly and float masks within 1e-5 (abs, and relative to
+    the count): the CSR entry (``pin_count_csr_cuda``, the pin list by net
+    offsets) against ``ref.pin_count_csr_ref`` at the sweep shapes of
+    tests/test_hypergraph.py plus k = 8 and at a skewed hypergraph with one
+    net of 4100 pins (nets above 32 pins are split across a warp), the ELL
+    entry (``pin_count_cuda``) against ``ref.pin_count_ref`` at the sweep
+    and, 0/1 masks only, at the skewed hypergraph's 8192-slot ELL (every
+    row split across a warp).
  8. The kahypar main path: ``interface.kahypar`` with mode ECO, objective
     km1, on rmat_hypergraph(17, seed=1) (131,072 vertices, 131,072 nets,
     707,640 pins), nparts=8, imbalance=0.03, seed=1.  The pin-count
     kernel's launch count is set to 0 just before and read just after; the
-    partition must be feasible and the count > 0.
+    partition must be feasible, the count > 0, and ``to_ell_h`` called 0
+    times (the kernel path reads the pin list).
  9. The same run with ``use_kernel=False``: the identical partition, and
     no launch.
 10. The cut-net objective on rmat_hypergraph(14, seed=2) at k=4: feasible,
     the kernel launched, and the cut below a random partition's.
 11. pin_count at the kahypar main path's level-0 shape (the run's own
-    ELL-H view and partition, B = 1 and 4): agreement, then times of the
-    kernel, the plain version and ``scatter_add_``, beside the bound.
+    partition, B = 1 and 4): the CSR entry on the level's pin list, exact
+    against its plain version, then times of the kernel (device time per
+    launch by torch.profiler, and per wrapper call back to back), the plain
+    version and the COO ``scatter_add_`` of ``M.pin_counts_device`` (timed
+    only), beside the bound (the real pins' ids and masks, the offsets,
+    labels and cnt); the host seconds of the level's ``to_ell_h`` (which
+    the kernel path no longer pays), then the ELL entry on that view, 0/1
+    masks exactly and float masks within 1e-5, timed the same way beside
+    its own bound, plain version and ``scatter_add_``.  A device time per
+    launch is read only from a trace that holds every launch of its calls.
 12. ssd_scan against ``ref.ssd_scan_ref`` at the sweep shapes of
     tests/test_kernels.py::test_ssd_scan_sweep (inputs drawn as that test
     draws them) within 3e-4 abs and rel, and the grouped form
     (``heads`` in 1, 3 rows sharing one row of B and C) against
-    ``ref.ssd_scan_grouped_ref``; the error plain TF32 products would give
-    is printed beside it.
+    ``ref.ssd_scan_grouped_ref``.
 13. zamba2-2.7B at full width (the published config: 54 layers, d_model
     2560, 2,341,405,600 f32 parameters made on the card from seed 0): the
     full-sequence forward on tokens (B = 2, L = 2048) on the kernel path
@@ -63,7 +77,7 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     P = N = 64, chunk 128) on the first layer's real inputs, grouped (80
     heads per row of B and C, as the main path calls it) and per row (B
     and C expanded), each held to 1e-3 of max |y| against the exact
-    recurrence; plain TF32's error is printed beside them.
+    recurrence.
 14. Serving: ``serve_stream`` with 6 requests (prompts of 16–64 tokens,
     16 new tokens each, arrival ticks 0–8, 4 slots, max_len 256): every
     request finishes with 16 tokens; wall, tokens/s and the SSD launch
@@ -72,11 +86,11 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     ``prefill_step``)
     against the kernel-path forward on its prompt at the last position,
     within 2e-3 of max |logits|, and whether the argmax agrees.
-16. ssd_scan timed at the forward's shape in both forms (3xTF32, and
-    plain TF32 for comparison) beside the plain recurrence, the chunked
-    torch engines (``ssd_chunked``, ``ssd_chunked_grouped``) and the
-    bounds, and each form's device time per launch (state pass, chunk
-    pass, output pass) by torch.profiler.
+16. ssd_scan timed at the forward's shape in both forms (3xTF32) beside
+    the plain recurrence, the chunked torch engines (``ssd_chunked``,
+    ``ssd_chunked_grouped``) and the bounds, and each form's device time
+    per launch (state pass, chunk pass, output pass) by torch.profiler,
+    from a trace that holds all 3 launches of each of its 10 calls.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -107,6 +121,9 @@ SWEEP = [(128, 8, 2), (256, 24, 5), (128, 16, 130), (384, 40, 17),
          (256, 8, 16), (256, 16, 33)]
 # (vertices, nets, k) of tests/test_hypergraph.py's pin-count sweep, + k=8
 PIN_SWEEP = [(100, 150, 2), (300, 500, 5), (64, 90, 130), (200, 260, 8)]
+# pin_count's float-mask tolerance: abs + relative to the count (a net
+# split across a warp sums its pins in another order)
+PIN_FLOAT_TOL = 1e-5
 # (BH, L, P, N, chunk) of tests/test_kernels.py::test_ssd_scan_sweep
 SSD_SWEEP = [(2, 128, 8, 4, 64), (3, 256, 16, 8, 128), (1, 64, 32, 16, 32),
              (2, 200, 8, 8, 64)]
@@ -244,8 +261,8 @@ def pin_inputs(torch, dev, n, m, k, b, integer, seed):
 
 
 def compare_pins(torch, pins, mask, netw, labels, k, integer) -> float:
-    """pin_count kernel vs plain version on the same inputs; returns max
-    |diff| over both outputs."""
+    """pin_count's ELL entry vs its plain version on the same inputs;
+    returns max |diff| over both outputs."""
     from repro_torch.kernels import pin_affinity, ref
     got = pin_affinity.pin_count_cuda(pins, mask, netw, labels, k)
     want = ref.pin_count_ref(pins, mask, netw, labels, k)
@@ -254,9 +271,52 @@ def compare_pins(torch, pins, mask, netw, labels, k, integer) -> float:
     for g, w in zip(got, want):
         check(g.shape == w.shape, f"shape {tuple(g.shape)}")
         err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
-    tol = 0.0 if integer else 1e-5
+    tol = 0.0 if integer else PIN_FLOAT_TOL
     check(err <= tol, f"pin_count disagrees with pin_count_ref at "
           f"{tuple(labels.shape)}x{tuple(pins.shape)} k={k}: {err} > {tol}")
+    return err
+
+
+def skewed_hypergraph(np):
+    """2000 nets of 1-47 pins and one of 4100 on 20,000 vertices: nets above
+    32 pins, and the long one above all, are split across a warp."""
+    from repro_torch.core.hypergraph.container import Hypergraph
+    rng = np.random.default_rng(5)
+    nets = [rng.choice(20000, int(s), replace=False)
+            for s in rng.integers(1, 48, 2000)]
+    nets.insert(1000, rng.choice(20000, 4100, replace=False))
+    return Hypergraph.from_nets(20000, nets)
+
+
+def csr_inputs(torch, hc, k, b, integer, seed):
+    """Pin weights on ``hc``'s real pins (0/1 with some zeros inside nets,
+    or floats) and B label rows, on hc's device."""
+    g = torch.Generator(device=hc.device).manual_seed(seed)
+    p = int(hc.eptr[-1])
+    w = torch.rand(p, generator=g, device=hc.device)
+    mask = hc.mask.clone()
+    mask[:p] = (w > 0.1).float() if integer else w
+    labels = torch.randint(0, k, (b, hc.n_pad), generator=g,
+                           device=hc.device, dtype=torch.int32)
+    return mask, labels
+
+
+def compare_csr(torch, hc, mask, labels, k, integer) -> float:
+    """pin_count's CSR entry vs its plain version on the same inputs;
+    returns max |diff|.  0/1 masks must agree exactly; float masks within
+    PIN_FLOAT_TOL abs + relative."""
+    from repro_torch.kernels import pin_affinity, ref
+    got = pin_affinity.pin_count_csr_cuda(hc.eptr, hc.pv, mask, labels, k)
+    want = ref.pin_count_csr_ref(hc.eptr, hc.pv, mask, labels, k)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"shape {tuple(got.shape)}")
+    diff = (got - want).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    excess = (float((diff - PIN_FLOAT_TOL * want.abs()).max())
+              if got.numel() else 0.0)
+    ok = err == 0.0 if integer else excess <= PIN_FLOAT_TOL
+    check(ok, f"pin_count_csr disagrees with pin_count_csr_ref at "
+          f"{tuple(labels.shape)} e_pad={hc.e_pad} k={k}: max |err| {err}")
     return err
 
 
@@ -291,26 +351,53 @@ def run_kahypar(torch, hg, k, mode, objective, seed, dev, use_kernel=None):
 
 
 def kahypar_phases(torch, np, dev, card) -> dict:
-    """Phases 7-11; returns the pin_count row of the kernels line."""
+    """Phases 7-11; returns the pin_count row of the kernels line (the
+    CSR entry, the main path's call)."""
     from repro_torch.core import interface
-    from repro_torch.core.hypergraph.container import to_ell_h
+    from repro_torch.core import hypergraph as H
+    from repro_torch.core.hypergraph import container as HC
+    from repro_torch.core.hypergraph import metrics as M
     from repro_torch.core.hypergraph.initial import random_partition
     from repro_torch.core.hypergraph.metrics import (balance, connectivity,
                                                      cut_net, is_feasible)
     from repro_torch.core.hypergraph.refine import k_bucket
-    from repro_torch.io.generators import rmat_hypergraph
+    from repro_torch.io.generators import random_hypergraph, rmat_hypergraph
     from repro_torch.kernels import pin_affinity, ref
 
-    # -- 7. kernel vs plain version at the sweep shapes --------------------
-    max_err = 0.0
+    # -- 7. both entries vs their plain versions at the sweep shapes --------
+    csr_err = ell_err = 0.0
+    cases = [(random_hypergraph(n, m, seed=n + k, wmax=4), k)
+             for (n, m, k) in PIN_SWEEP]
+    cases.append((skewed_hypergraph(np), 8))
+    for i, (hg, k) in enumerate(cases):
+        hc = HC.to_pincoo(hg, device=dev)
+        for b in (1, 4):
+            for integer in (True, False):
+                mask, labels = csr_inputs(torch, hc, k, b, integer,
+                                          seed=100 * i + 10 * b + integer)
+                csr_err = max(csr_err, compare_csr(torch, hc, mask, labels,
+                                                   k, integer))
     for (n, m, k) in PIN_SWEEP:
         for b in (1, 4):
             for integer in (True, False):
                 ins = pin_inputs(torch, dev, n, m, k, b, integer,
                                  seed=n + m + k + b)
-                max_err = max(max_err, compare_pins(torch, *ins, k, integer))
-    log(f"sweep: pin_count == pin_count_ref at {len(PIN_SWEEP)} shapes x "
-        f"B=1,4 x int/float masks (max |err| {max_err:g})")
+                ell_err = max(ell_err, compare_pins(torch, *ins, k, integer))
+    # the ELL entry on the skewed hypergraph: pmax 8192, every row split
+    # across its warp; 0/1 masks, exact
+    ell = HC.to_ell_h(cases[-1][0], device=dev)
+    for b in (1, 4):
+        labels = torch.randint(0, 8, (b, ell.n_pad), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(b), dtype=torch.int32)
+        ell_err = max(ell_err, compare_pins(torch, ell.pins, ell.pin_mask,
+                                            ell.netw, labels, 8, True))
+    log(f"sweep: pin_count_csr == pin_count_csr_ref at {len(PIN_SWEEP)} "
+        f"shapes + a net of 4100 pins x B=1,4 x 0/1 (exact) and float masks "
+        f"(max |err| {csr_err:g}); pin_count (ELL) == pin_count_ref at "
+        f"{len(PIN_SWEEP)} shapes x B=1,4 x 0/1 and float masks and on the "
+        f"4100-pin net's {tuple(ell.pins.shape)} ELL (max |err| "
+        f"{ell_err:g})")
 
     # -- 8. the kahypar main path at real size ----------------------------
     k_main = 8
@@ -318,8 +405,19 @@ def kahypar_phases(torch, np, dev, card) -> dict:
     log(f"hypergraph rmat_hypergraph(17, seed=1): n={hg.n} m={hg.m} "
         f"pins={hg.pins} max_net={int(hg.net_sizes().max())} "
         f"max_degree={int(hg.vertex_degrees().max())}")
-    km1, part, wall, launches, rec = run_kahypar(
-        torch, hg, k_main, interface.ECO, "km1", 1, dev)
+    ell_builds = []
+    real_to_ell_h = HC.to_ell_h
+
+    def counted_to_ell_h(*args, **kwargs):
+        ell_builds.append(1)
+        return real_to_ell_h(*args, **kwargs)
+
+    HC.to_ell_h = H.to_ell_h = counted_to_ell_h
+    try:
+        km1, part, wall, launches, rec = run_kahypar(
+            torch, hg, k_main, interface.ECO, "km1", 1, dev)
+    finally:
+        HC.to_ell_h = H.to_ell_h = real_to_ell_h
     feas = is_feasible(hg, part, k_main, 0.03)
     ctr = rec.counters()
     spans = span_seconds(rec, ("hierarchy", "initial_tournament",
@@ -329,11 +427,12 @@ def kahypar_phases(torch, np, dev, card) -> dict:
         f"partition {connectivity(hg, rnd)}) "
         f"balance={balance(hg, part, k_main):.4f} feasible={feas} "
         f"wall_s={wall:.3f} levels={int(ctr.get('engine/levels', 0))} "
-        f"launches={launches} view_builds="
+        f"launches={launches} to_ell_h calls={len(ell_builds)} view_builds="
         f"{int(ctr.get('engine/view_builds', 0))} spans_s="
         f"{json.dumps({n: round(s, 3) for n, s in spans.items()})}")
     check(feas, "kahypar main path partition infeasible")
     check(launches > 0, "kahypar main path never launched pin_count")
+    check(not ell_builds, "the kahypar kernel path built an ELL-H view")
     main_launches = launches
 
     # -- 9. the same run on the plain path ---------------------------------
@@ -360,25 +459,79 @@ def kahypar_phases(torch, np, dev, card) -> dict:
     check(cut < rnd_cut, "cut objective not below a random partition's")
 
     # -- 11. the kernel at the main path's level-0 shape ------------------
-    ell = to_ell_h(hg, device=dev)
+    hc = HC.to_pincoo(hg, device=dev)
     k_pad = k_bucket(k_main)
-    e_pad, pmax = ell.pins.shape
-    lab1 = torch.zeros(1, ell.n_pad, dtype=torch.int32, device=dev)
+    lab1 = torch.zeros(1, hc.n_pad, dtype=torch.int32, device=dev)
     lab1[0, :hg.n] = torch.from_numpy(part.astype(np.int32)).to(dev)
-    rows_out = {}
-    for b in (1, 4):
+
+    def level0_labels(b):
         labels = lab1.expand(b, -1).contiguous()
         if b > 1:      # other rows: other candidate partitions
             gen = torch.Generator(device=dev).manual_seed(b)
-            labels[1:] = torch.randint(0, k_main, (b - 1, ell.n_pad),
+            labels[1:] = torch.randint(0, k_main, (b - 1, hc.n_pad),
                                        generator=gen, device=dev,
                                        dtype=torch.int32)
-        max_err = max(max_err, compare_pins(torch, ell.pins, ell.pin_mask,
+        return labels
+
+    p = int(hc.eptr[-1])
+    rows_out = {}
+    for b in (1, 4):
+        labels = level0_labels(b)
+        csr_err = max(csr_err, compare_csr(torch, hc, hc.mask, labels, k_pad,
+                                           True))
+        fmask, _ = csr_inputs(torch, hc, k_pad, b, False, seed=7 + b)
+        csr_err = max(csr_err, compare_csr(torch, hc, fmask, labels, k_pad,
+                                           False))
+        check(torch.equal(M.pin_counts_device(hc, labels, k_pad),
+                          pin_affinity.pin_count_csr_cuda(
+                              hc.eptr, hc.pv, hc.mask, labels, k_pad)),
+              "scatter_add_ yardstick disagrees with the CSR kernel")
+        def kernel():
+            return pin_affinity.pin_count_csr_cuda(hc.eptr, hc.pv, hc.mask,
+                                                   labels, k_pad)
+
+        ms = launch_ms(torch, kernel, {"pin_count_kernel": 1},
+                       calls=20)["pin_count_kernel"]
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, lambda: ref.pin_count_csr_ref(
+            hc.eptr, hc.pv, hc.mask, labels, k_pad), iters=5)
+        library_ms = cuda_ms(torch, lambda: M.pin_counts_device(
+            hc, labels, k_pad), iters=5)
+        # what the function must move: the real pins' masks (each is a
+        # weight), the ids of those with a live mask, the offsets, the
+        # labels and cnt
+        live = int((hc.mask[:p] != 0).sum())
+        nbytes = (p * 4 + live * 4 + hc.eptr.numel() * 4 + labels.numel() * 4
+                  + b * hc.e_pad * k_pad * 4)
+        bms, by = bound_ms(nbytes, b * live)
+        rows_out[b] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bms, bound_by=by)
+        log(f"pin_count_csr B={b} e_pad={hc.e_pad} pins={p} k={k_pad} "
+            f"n_pad={hc.n_pad}: kernel {ms:.4f} ms per launch "
+            f"(torch.profiler; {call_ms:.4f} ms per wrapper call back to "
+            f"back), plain {plain_ms:.4f} ms, "
+            f"scatter_add_ (M.pin_counts_device) {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({nbytes} bytes at {PEAK_BYTES_PER_S / 1e12} "
+            f"TB/s) [{card}]")
+
+    # the ELL entry on the level's ELL-H view: what the kernel path no
+    # longer builds (its host seconds), and the redesigned body's time on it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ell = HC.to_ell_h(hg, device=dev)
+    torch.cuda.synchronize()
+    log(f"to_ell_h at level 0 (the view the kernel path no longer builds): "
+        f"{time.perf_counter() - t0:.4f} s host [{card}]")
+    e_pad, pmax = ell.pins.shape
+    for b in (1, 4):
+        labels = level0_labels(b)
+        ell_err = max(ell_err, compare_pins(torch, ell.pins, ell.pin_mask,
                                             ell.netw, labels, k_pad, True))
-        fgen = torch.Generator(device=dev).manual_seed(7 + b)
-        fmask = (ell.pin_mask * torch.rand(ell.pin_mask.shape, device=dev,
-                                           generator=fgen)).contiguous()
-        max_err = max(max_err, compare_pins(torch, ell.pins, fmask, ell.netw,
+        fmask = (ell.pin_mask * torch.rand(
+            ell.pin_mask.shape, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(7 + b))
+                 ).contiguous()
+        ell_err = max(ell_err, compare_pins(torch, ell.pins, fmask, ell.netw,
                                             labels, k_pad, False))
         pins_l = ell.pins.long()
 
@@ -388,37 +541,39 @@ def kahypar_phases(torch, np, dev, card) -> dict:
 
         check(torch.equal(library(), pin_affinity.pin_count_cuda(
             ell.pins, ell.pin_mask, ell.netw, labels, k_pad)[0]),
-              "scatter_add_ yardstick disagrees with the kernel")
-        ms = cuda_ms(torch, lambda: pin_affinity.pin_count_cuda(
-            ell.pins, ell.pin_mask, ell.netw, labels, k_pad))
+              "scatter_add_ yardstick disagrees with the ELL entry")
+        def kernel():
+            return pin_affinity.pin_count_cuda(ell.pins, ell.pin_mask,
+                                               ell.netw, labels, k_pad)
+
+        ms = launch_ms(torch, kernel, {"pin_count_kernel": 1},
+                       calls=20)["pin_count_kernel"]
+        call_ms = cuda_ms(torch, kernel)
         plain_ms = cuda_ms(torch, lambda: ref.pin_count_ref(
             ell.pins, ell.pin_mask, ell.netw, labels, k_pad), iters=5)
         library_ms = cuda_ms(torch, library, iters=5)
-        # what the function must move: the whole mask (it marks the live
-        # slots), the pin ids of live slots only, netw of nets with a live
-        # pin (any other net's score is 0 whatever its weight), the labels,
-        # and both outputs
+        # the whole mask (it marks the live slots), the pin ids of live
+        # slots only, netw of nets with a live pin, the labels, both outputs
         live = ell.pin_mask != 0
         nbytes = (ell.pin_mask.numel() * 4 + int(live.sum()) * 4
                   + int(live.any(1).sum()) * 4 + labels.numel() * 4
                   + 2 * b * e_pad * k_pad * 4)
-        adds = b * int(live.sum())
-        bms, by = bound_ms(nbytes, adds)
-        rows_out[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bms, bound_by=by)
-        log(f"pin_count B={b} e_pad={e_pad} pmax={pmax} k={k_pad} "
-            f"n_pad={ell.n_pad}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, scatter_add_ {library_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({nbytes} bytes at {PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+        bms, by = bound_ms(nbytes, b * int(live.sum()))
+        log(f"pin_count (ELL entry) B={b} e_pad={e_pad} pmax={pmax} "
+            f"k={k_pad} n_pad={ell.n_pad}: kernel {ms:.4f} ms per launch "
+            f"(torch.profiler; {call_ms:.4f} ms per wrapper call), plain "
+            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({nbytes} bytes at {PEAK_BYTES_PER_S / 1e12} "
+            f"TB/s); max |err| {ell_err:g} [{card}]")
     main = rows_out[1]    # level-0 refinement launches one row
     return {"name": "pin_count", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/pin_count.cu",
             "replaces": "src/repro/kernels/pin_affinity.py:33",
-            "launches": main_launches, "max_abs_err": max_err,
+            "launches": main_launches, "max_abs_err": csr_err,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "shape": [1, e_pad, pmax, k_pad, ell.n_pad]}
+            "library_ms": main["library_ms"], "call_ms": main["call_ms"],
+            "shape": [1, hc.e_pad, p, k_pad, hc.n_pad]}
 
 
 def ssd_sweep_inputs(np, bh, l, p, n):
@@ -474,22 +629,38 @@ def ssd_bound(bh, l, p, n, q, groups):
             "bytes" if t_bytes >= t_ops else "operations", readings)
 
 
-def ssd_launch_ms(torch, call, calls=10) -> tuple:
-    """(mean device ms of each of the SSD scan's kernels, device launches
-    per call) over ``calls`` calls, both as torch.profiler saw them."""
-    from torch.profiler import ProfilerActivity, profile
+def launch_ms(torch, call, per_call, calls=10) -> dict:
+    """Mean device ms per launch of each kernel named in ``per_call`` (name
+    → its launches per call) over ``calls`` calls, as torch.profiler saw
+    them.  The profiler traces one round of calls as a warm-up and reads
+    the next; a trace that does not hold exactly ``calls`` × that many
+    launches of every name is taken again, and after 5 such traces the
+    check fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    seen = [(name, ev) for ev in prof.key_averages()
-            for name in ("ssd_state_kernel", "ssd_pass_kernel",
-                         "ssd_out_kernel") if name in ev.key]
-    return ({name: ev.device_time_total / ev.count / 1e3
-             for name, ev in seen},
-            sum(ev.count for _, ev in seen) / calls)
+    want = {name: calls * n for name, n in per_call.items()}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = {name: [0, 0.0] for name in per_call}
+        for ev in prof.key_averages():
+            for name in per_call:
+                if name in ev.key:
+                    seen[name][0] += ev.count
+                    seen[name][1] += ev.device_time_total
+        got = {name: c for name, (c, _) in seen.items()}
+        if got == want:
+            break
+    check(got == want, f"torch.profiler recorded {got} launches, not "
+          f"{want}, in 5 traces of {calls} calls")
+    return {name: t / c / 1e3 for name, (c, t) in seen.items()}
 
 
 def max_rel(torch, got, want) -> tuple:
@@ -728,10 +899,13 @@ def zamba2_phases(torch, np, dev, card) -> list:
             f"{rd['recurrence_flop']} FLOP at f32 "
             f"{rd['recurrence_f32_ms']:.4f} ms at {PEAK_F32_PER_S / 1e12} "
             f"TFLOP/s) [{card}]")
-        launch_ms, per_call = ssd_launch_ms(torch, f["kernel"])
-        log(f"ssd_scan {form} device launches per call {per_call:g}, device "
+        per_call = {"ssd_state_kernel": 1, "ssd_pass_kernel": 1,
+                    "ssd_out_kernel": 1}
+        per_launch = launch_ms(torch, f["kernel"], per_call)
+        log(f"ssd_scan {form} device launches per call "
+            f"{sum(per_call.values())} (all seen by torch.profiler), device "
             f"ms per launch (torch.profiler, 10 calls): "
-            f"{json.dumps(launch_ms)} [{card}]")
+            f"{json.dumps(per_launch)} [{card}]")
         rows.append({"name": f["name"], "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "replaces": "src/repro/kernels/ssd_scan.py:27",
@@ -741,8 +915,8 @@ def zamba2_phases(torch, np, dev, card) -> list:
                      "bound_by": by, "library_ms": None, "form": form,
                      "main_path": f["launches"] > 0,
                      "chunked_ms": chunked_ms, "rel_err": model_rel[form],
-                     "device_launches_per_call": per_call,
-                     "launch_ms": launch_ms,
+                     "device_launches_per_call": sum(per_call.values()),
+                     "launch_ms": per_launch,
                      "shape": [bh, l, p, n, q, bh // f["groups"]]})
     return rows
 

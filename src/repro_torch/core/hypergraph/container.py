@@ -8,13 +8,16 @@ plus vertex weights ``vwgt`` and net weights ``ewgt``.  All irregular
 preprocessing (IO, contraction bookkeeping, validation) happens here in
 numpy, mirroring ``csr.Graph``.
 
-Device side: two rectangular torch views on an explicit device:
+Device side: two torch views on an explicit device:
+  * `PinCoo` — the padded pin list in net order, with each pin's net and
+    the net offsets ``eptr``: the COO for segment-op algorithms (the plain
+    pin counts, gain computation, objectives) and the CSR that the CUDA
+    pin-count kernel (kernels/csrc/pin_count.cu) reads on the refinement
+    scan's kernel path.
   * `EllHypergraph` — padded ELL over BOTH sides: ``vnets`` (n_pad, dvmax)
     incident-net ids per vertex, and ``pins`` (e_pad, pmax) pin ids per net
-    with a validity ``pin_mask``.  This is the layout the CUDA pin-count
-    kernel (kernels/csrc/pin_count.cu) reads.
-  * `PinCoo` — padded COO over pins for segment-op algorithms (the plain
-    pin counts, gain computation, objectives).
+    with a validity ``pin_mask``: the TPU kernel's layout, read by
+    ``ops.pin_count`` / ``ops.pin_affinity``; no partitioner builds it.
 
 Padding conventions (what `to_ell_h`/`to_pincoo` write, with the same pow2
 buckets as the JAX package): ``e_pad > m`` always, so net row ``e_pad - 1``
@@ -22,7 +25,8 @@ is a genuine padding net (``netw == 0``) and serves as the ELL sentinel
 for ``vnets``; padding pins carry ``pin_mask == 0`` / ``mask == 0`` and
 point at vertex ``n_pad - 1``, contributing nothing to any reduction.  Only
 the zero masks and weights mark padding: when n lands exactly on its
-bucket, ``n_pad - 1`` is a real vertex.
+bucket, ``n_pad - 1`` is a real vertex.  Padding nets are empty in
+``PinCoo.eptr`` (``eptr[m:] = p``), so the padding pins lie in no net.
 """
 from __future__ import annotations
 
@@ -283,11 +287,13 @@ class EllHypergraph:
 
 @dataclasses.dataclass
 class PinCoo:
-    """Padded pin list.  Padding pins are (net e_pad-1, vertex n_pad-1,
-    mask 0) on a zero-weight net — invisible to every reduction.
+    """Padded pin list in net order.  Padding pins are (net e_pad-1,
+    vertex n_pad-1, mask 0) on a zero-weight net — invisible to every
+    reduction — and lie past ``eptr[-1]``, in no net's range.
 
     Indices are stored int32 like the kernel's and the JAX package's;
     ``pv_long``/``pe_long`` are the int64 copies torch's scatters need.
+    ``eptr`` is the port's own field (the JAX package's PinCoo has none).
     """
 
     pv: torch.Tensor       # (p_pad,) int32 — pin's vertex
@@ -296,6 +302,8 @@ class PinCoo:
     netw: torch.Tensor     # (e_pad,) f32   — net weights, 0 padding
     esize: torch.Tensor    # (e_pad,) f32   — pin counts, 0 padding
     vwgt: torch.Tensor     # (n_pad,) f32   — vertex weights, 0 padding
+    eptr: torch.Tensor     # (e_pad+1,) int32 — net e's pins are
+    #                        [eptr[e], eptr[e+1]); padding nets are empty
 
     @property
     def p_pad(self) -> int:
@@ -386,6 +394,8 @@ def to_pincoo(hg: Hypergraph, p_mult: int = 256, n_mult: int = 128,
     esize[:m] = hg.net_sizes()
     vw = np.zeros(n_pad, dtype=np.float32)
     vw[:n] = hg.vwgt
+    eptr = np.full(e_pad + 1, p, dtype=np.int32)
+    eptr[:m + 1] = hg.eptr
     return PinCoo(pv=_put(pv, dev), pe=_put(pe, dev), mask=_put(mask, dev),
                   netw=_put(netw, dev), esize=_put(esize, dev),
-                  vwgt=_put(vw, dev))
+                  vwgt=_put(vw, dev), eptr=_put(eptr, dev))

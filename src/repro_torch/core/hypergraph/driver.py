@@ -3,10 +3,11 @@
 The multilevel loop lives in the shared engine (core/multilevel.py); this
 module provides the hypergraph `Medium` adapter and the ``kahypar`` program
 entry.  Riding on the engine, hypergraphs get cut-protected iterated
-V-cycles and ``time_limit`` restarts, and the pin-COO / ELL-H device views
-are built once per hierarchy level and reused across refinement rounds,
-initial tries, V-cycles and restarts.  A medium holds its device: every
-view, generator and refinement of the run lands there.
+V-cycles and ``time_limit`` restarts, and the device pin list (`PinCoo`:
+the COO of the plain path, the CSR of the pin-count kernel) is built once
+per hierarchy level and reused across refinement rounds, initial tries,
+V-cycles and restarts.  A medium holds its device: every view, generator
+and refinement of the run lands there.
 """
 from __future__ import annotations
 
@@ -18,8 +19,7 @@ import numpy as np
 from repro_torch.core import multilevel as ML
 from repro_torch.core.csr import resolve_device
 from repro_torch.core.refine import default_use_kernel
-from repro_torch.core.hypergraph.container import (Hypergraph, to_ell_h,
-                                                   to_pincoo)
+from repro_torch.core.hypergraph.container import Hypergraph, to_pincoo
 from repro_torch.core.hypergraph import coarsen as C
 from repro_torch.core.hypergraph import initial as I
 from repro_torch.core.hypergraph import metrics as M
@@ -100,22 +100,21 @@ class HypergraphMedium(ML.ViewCache):
 
     # -- device views ------------------------------------------------------
     def build_views(self):
-        hc = to_pincoo(self.hg, device=self.device)
-        ell = (to_ell_h(self.hg, device=self.device) if self.use_kernel
-               else None)
-        return hc, ell
+        """The level's pin list: the COO the plain path scatters and the
+        CSR the kernel path reads."""
+        return to_pincoo(self.hg, device=self.device)
 
     # -- refinement --------------------------------------------------------
     def refine(self, part: np.ndarray, k: int, eps: float, seed: int,
                force_balance: Optional[bool] = None) -> np.ndarray:
-        hc, ell = self.views
+        hc = self.views
         if force_balance is None:
             force_balance = not M.is_feasible(self.hg, part, k, eps)
         out = refine_hypergraph(self.hg, part, k, eps,
                                 rounds=self.cfg.refine_rounds, seed=seed,
                                 objective=self.obj,
                                 force_balance=force_balance,
-                                use_kernel=self.use_kernel, hc=hc, ell=ell)
+                                use_kernel=self.use_kernel, hc=hc)
         rec = ML.recorder_of(self)
         if rec.enabled:
             rec.count("refine/rounds", self.cfg.refine_rounds)
@@ -127,12 +126,11 @@ class HypergraphMedium(ML.ViewCache):
 
     def refine_batch(self, parts: Sequence[np.ndarray], k: int, eps: float,
                      seed: int) -> List[np.ndarray]:
-        hc, ell = self.views
         return refine_hypergraph_batch(self.hg, list(parts), k, eps,
                                        rounds=self.cfg.refine_rounds,
                                        seed=seed, objective=self.obj,
                                        use_kernel=self.use_kernel,
-                                       hc=hc, ell=ell)
+                                       hc=self.views)
 
     def polish(self, part: np.ndarray, k: int, eps: float,
                seed: int) -> np.ndarray:

@@ -13,9 +13,9 @@ Batch-synchronous k-way LP with exact move gains for both objectives:
 Moves are applied with the same capped acceptance (hard balance guarantee)
 and undo-to-best semantics as the graph refiner (core/lp.py,
 core/refine.py).  Per-net pin counts come either from the CUDA pin-count
-kernel (given an ELL-H view, ``kernels/ops.pin_count``) or a COO scatter
-(the plain path); both are exact integer counts, so the two paths take the
-same decisions.
+kernel reading the pin list by its net offsets (the kernel path,
+``kernels/ops.pin_count_csr``) or a COO scatter (the plain path); both
+are exact integer counts, so the two paths take the same decisions.
 
 The scan takes a leading batch dim of candidate rows.  Tie-break noise is
 an argument: a (B, rounds, n_pad, k_pad) tensor (the tests hand in the JAX
@@ -32,8 +32,7 @@ import torch
 from repro_torch.core import lp as lp_mod
 from repro_torch.core.csr import _pow2_pad, resolve_device
 from repro_torch.core.hypergraph import metrics as M
-from repro_torch.core.hypergraph.container import (EllHypergraph, Hypergraph,
-                                                   PinCoo, to_ell_h,
+from repro_torch.core.hypergraph.container import (Hypergraph, PinCoo,
                                                    to_pincoo)
 from repro_torch.core.refine import (_generators, _round_noise,
                                      default_use_kernel, row_seed)
@@ -71,8 +70,7 @@ def _gains(hc: PinCoo, labels: torch.Tensor, cnt: torch.Tensor,
 def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
                              cap: torch.Tensor, noise: lp_mod.Noise,
                              force: torch.Tensor, k: int, rounds: int,
-                             objective: str,
-                             ell: Optional[EllHypergraph] = None,
+                             objective: str, use_kernel: bool = False,
                              nrounds: Optional[torch.Tensor] = None):
     """THE hypergraph refinement program: everything routes through here.
 
@@ -80,10 +78,11 @@ def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
     capacity on bucket-padding blocks; ``noise`` the per-round draws, a
     (B, rounds, n_pad, k) tensor or B generators; ``force`` (B,) bools;
     ``nrounds`` (B,) optionally masks a row's trailing rounds to no-ops
-    (default: every row runs ``rounds``).  With an ``ell`` view the pin
-    counts come from ``kernels/ops.pin_count`` (the CUDA kernel on a card),
-    without one from the COO scatter.  Returns (labels (B, n_pad),
-    best objective (B,)).  Rounds past every row's ``nrounds`` are not run.
+    (default: every row runs ``rounds``).  With ``use_kernel`` the pin
+    counts come from ``kernels/ops.pin_count_csr`` on ``hc``'s pin list
+    (the CUDA kernel on a card), else from the COO scatter.  Returns
+    (labels (B, n_pad), best objective (B,)).  Rounds past every row's
+    ``nrounds`` are not run.
     """
     n = hc.n_pad
     b = labels0.shape[0]
@@ -95,12 +94,11 @@ def _hyper_refine_scan_batch(hc: PinCoo, labels0: torch.Tensor,
     if nrounds is None:
         nrounds = torch.full((b,), rounds, dtype=torch.int64, device=dev)
 
-    if ell is not None:
+    if use_kernel:
         from repro_torch.kernels import ops as kops
 
         def cnt_fn(labels):
-            return kops.pin_count(ell.pins, ell.pin_mask, ell.netw, labels,
-                                  k)[0]
+            return kops.pin_count_csr(hc.eptr, hc.pv, hc.mask, labels, k)
     else:
         def cnt_fn(labels):
             return M.pin_counts_device(hc, labels, k)
@@ -171,20 +169,17 @@ def _pad_caps(cap: np.ndarray, k_pad: int) -> np.ndarray:
     return out
 
 
-def _views(hg: Hypergraph, hc, ell, use_kernel, device):
-    """Resolve (hc, ell) for a host-level entry: cached views fix the
-    device, else ``device`` does (None = CUDA).  ``ell`` is None exactly
-    when the scan is to take the COO path."""
+def _views(hg: Hypergraph, hc, use_kernel, device):
+    """Resolve (hc, use_kernel) for a host-level entry: a cached view fixes
+    the device, else ``device`` does (None = CUDA); ``use_kernel=None`` is
+    the device's default."""
     dev = hc.device if hc is not None else resolve_device(device)
     use_kernel = default_use_kernel(dev) if use_kernel is None else use_kernel
-    hc = hc if hc is not None else to_pincoo(hg, device=dev)
-    if not use_kernel:
-        return hc, None
-    return hc, ell if ell is not None else to_ell_h(hg, device=dev)
+    return (hc if hc is not None else to_pincoo(hg, device=dev)), use_kernel
 
 
-def _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds, force,
-                          objective) -> np.ndarray:
+def _run_hyper_scan_batch(hg, hc, use_kernel, parts, k, eps, rounds, seeds,
+                          force, objective) -> np.ndarray:
     """Shared batched-entry plumbing: host partitions in, host int64 rows
     (cut to ``hg.n``) out."""
     dev = hc.device
@@ -197,7 +192,7 @@ def _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds, force,
         torch.from_numpy(_pad_caps(_caps_for(hg, k, eps), k_pad)).to(dev),
         _generators(seeds, dev),
         torch.as_tensor(np.asarray(force, dtype=bool)).to(dev), k_pad,
-        rounds, objective, ell=ell)
+        rounds, objective, use_kernel=use_kernel)
     return outs.cpu().numpy().astype(np.int64)[:, :hg.n]
 
 
@@ -207,18 +202,17 @@ def refine_hypergraph(hg: Hypergraph, part: np.ndarray, k: int,
                       force_balance: bool = False,
                       use_kernel: Optional[bool] = None,
                       hc: Optional[PinCoo] = None,
-                      ell: Optional[EllHypergraph] = None,
                       device=None) -> np.ndarray:
     """Polish ``part``; never returns a worse feasible objective.
 
     ``use_kernel=None`` resolves to the device default (the CUDA kernel on
-    a card, the COO scatter on the CPU); ``hc``/``ell`` accept cached
-    per-level views, which also fix the device.
+    a card, the COO scatter on the CPU); ``hc`` accepts a cached per-level
+    view, which also fixes the device.
     """
     if k <= 1 or hg.n == 0:
         return np.asarray(part, dtype=np.int64)
-    hc, ell = _views(hg, hc, ell, use_kernel, device)
-    out = _run_hyper_scan_batch(hg, hc, ell, [part], k, eps, rounds,
+    hc, use_kernel = _views(hg, hc, use_kernel, device)
+    out = _run_hyper_scan_batch(hg, hc, use_kernel, [part], k, eps, rounds,
                                 [row_seed(seed, 0)], [force_balance],
                                 objective)[0]
     score = M.connectivity if objective == "km1" else M.cut_net
@@ -233,7 +227,6 @@ def refine_hypergraph_batch(hg: Hypergraph, parts: list, k: int,
                             seed: int = 0, objective: str = "km1",
                             use_kernel: Optional[bool] = None,
                             hc: Optional[PinCoo] = None,
-                            ell: Optional[EllHypergraph] = None,
                             seeds: Optional[Sequence[int]] = None,
                             device=None) -> list:
     """Refine several candidate partitions in one batched device call (the
@@ -241,12 +234,12 @@ def refine_hypergraph_batch(hg: Hypergraph, parts: list, k: int,
     generator seeds (default ``row_seed(seed, i)`` for row i)."""
     if k <= 1 or hg.n == 0 or not parts:
         return [np.asarray(p, dtype=np.int64) for p in parts]
-    hc, ell = _views(hg, hc, ell, use_kernel, device)
+    hc, use_kernel = _views(hg, hc, use_kernel, device)
     force = [not M.is_feasible(hg, p, k, eps) for p in parts]
     if seeds is None:
         seeds = [row_seed(seed, i) for i in range(len(parts))]
-    outs = _run_hyper_scan_batch(hg, hc, ell, parts, k, eps, rounds, seeds,
-                                 force, objective)
+    outs = _run_hyper_scan_batch(hg, hc, use_kernel, parts, k, eps, rounds,
+                                 seeds, force, objective)
     score = M.connectivity if objective == "km1" else M.cut_net
     result = []
     for i, p in enumerate(parts):

@@ -9,7 +9,9 @@ shape bucket, and correctness relies ONLY on weight masks — ``wgt == 0``
 for ELL slots, ``pin_mask == 0`` for pin slots, ``netw == 0`` for padding
 nets.  Index sentinels (slot id n_pad-1 etc.) are never trusted as masks:
 a padded slot may alias a real row when a dim lands exactly on its
-bucket, and the ids in padding slots may be any valid vertex.
+bucket, and the ids in padding slots may be any valid vertex.  The pin
+list of ``pin_count_csr`` is addressed by its offsets instead: pins past
+``eptr[-1]`` lie in no net, so their ids and weights may be anything.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.kernels import ssd_scan as _ssdk
 PADDING_CONTRACT = {
     "lp_affinity": {"mask": "wgt", "garbage": ("nbr",)},
     "pin_count": {"mask": "pin_mask", "garbage": ("pins",)},
+    "pin_count_csr": {"mask": "mask", "garbage": ("pv",)},
     "pin_affinity": {"mask": "pin_mask", "garbage": ("pins", "vnets")},
     "ssd_scan": {"tail": ("x", "logdecay", "b", "c")},
 }
@@ -54,6 +57,15 @@ def pin_count(pins: torch.Tensor, pin_mask: torch.Tensor,
     if pins.device.type == "cpu":
         return _ref.pin_count_ref(pins, pin_mask, netw, labels, k)
     return _pink.pin_count_cuda(pins, pin_mask, netw, labels.contiguous(), k)
+
+
+def pin_count_csr(eptr: torch.Tensor, pv: torch.Tensor, mask: torch.Tensor,
+                  labels: torch.Tensor, k: int) -> torch.Tensor:
+    """Pin list (net e's pins ``pv[eptr[e]:eptr[e+1]]``, weights ``mask``)
+    + batched labels (B, n_pad) → (B, e_pad, k) per-net pin counts."""
+    if pv.device.type == "cpu":
+        return _ref.pin_count_csr_ref(eptr, pv, mask, labels, k)
+    return _pink.pin_count_csr_cuda(eptr, pv, mask, labels.contiguous(), k)
 
 
 def pin_affinity(vnets: torch.Tensor, pins: torch.Tensor,

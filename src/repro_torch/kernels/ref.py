@@ -49,6 +49,38 @@ def pin_count_ref(pins: torch.Tensor, pin_mask: torch.Tensor,
     return cnt, cnt * netw[:, None]
 
 
+def pin_count_csr_ref(eptr: torch.Tensor, pv: torch.Tensor,
+                      mask: torch.Tensor, labels: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """cnt[b, e, c] = Σ_{p ∈ [eptr[e], eptr[e+1])} mask[p] ·
+    [labels[b, pv[p]] == c].
+
+    ``eptr`` int32 (e_pad + 1,) offsets into ``pv`` int32 and ``mask`` f32
+    (p_pad,), ``labels`` int32 (B, n_pad) → f32 (B, e_pad, k).  Each net's
+    pins are added in order, rank 0, 1, ..., as ``pin_count_ref`` adds its
+    slots, and labels outside [0, k) hit no block.  Pins past ``eptr[-1]``
+    lie in no net and are never read.
+    """
+    dev = labels.device
+    e_pad = eptr.shape[0] - 1
+    cnt = torch.zeros(labels.shape[0], e_pad, k, dtype=torch.float32,
+                      device=dev)
+    start = eptr[:-1].long()
+    size = eptr[1:].long() - start
+    order = torch.argsort(size, descending=True, stable=True)
+    # nets with more than j pins are the first live[j] of ``order``
+    ranks = torch.arange(int(size.max()) if e_pad else 0, device=dev)
+    live = (e_pad - torch.searchsorted(size[order].flip(0), ranks,
+                                       right=True)).tolist()
+    blocks = torch.arange(k, dtype=labels.dtype, device=dev)
+    for j, n_live in enumerate(live):
+        nets = order[:n_live]
+        pins = start[nets] + j
+        hit = labels[:, pv[pins].long(), None] == blocks     # (B, n_live, k)
+        cnt.index_add_(1, nets, mask[pins][None, :, None] * hit)
+    return cnt
+
+
 def pin_affinity_ref(vnets: torch.Tensor, pins: torch.Tensor,
                      pin_mask: torch.Tensor, netw: torch.Tensor,
                      labels: torch.Tensor, k: int,

@@ -114,6 +114,26 @@ def test_views_identical(key):
     assert float(thc.mask[port.pins:].sum()) == 0.0
 
 
+@pytest.mark.parametrize("key", ["random_w", "grid", "rmat"])
+def test_pincoo_eptr_is_the_net_offsets_padded(key):
+    """The port's PinCoo adds the net offsets the CSR pin-count entry reads:
+    ``hg.eptr`` with every padding net empty at the end of the pins.  The
+    fields it shares with the reference's PinCoo stay equal."""
+    ref, port = _pair(key)
+    rhc, thc = rC.to_pincoo(ref), tC.to_pincoo(port, device=CPU)
+    for f in ("pv", "pe", "mask", "netw", "esize", "vwgt"):
+        np.testing.assert_array_equal(np.asarray(getattr(rhc, f)),
+                                      getattr(thc, f).numpy(), err_msg=f)
+    eptr = thc.eptr.numpy()
+    assert eptr.dtype == np.int32 and eptr.shape == (thc.e_pad + 1,)
+    np.testing.assert_array_equal(eptr[:port.m + 1], port.eptr)
+    assert (eptr[port.m:] == port.pins).all()
+    # the pins are in net order: pe is the expansion of eptr
+    np.testing.assert_array_equal(
+        thc.pe.numpy()[:port.pins],
+        np.repeat(np.arange(thc.e_pad), np.diff(eptr)))
+
+
 def test_device_none_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

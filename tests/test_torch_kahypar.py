@@ -4,7 +4,9 @@ The refinement scan gets the JAX package's own per-round draws
 (``jax.random.split(key, rounds)``, then ``uniform(key_r, (n_pad, k_pad),
 0, 1e-4)`` per row), so it must agree bit for bit with
 ``repro.core.hypergraph.refine._hyper_refine_scan_batch`` on the kernel
-path and on the COO path, for both objectives.  The reference is
+path and on the COO path, for both objectives: the port's kernel path
+counts pins from its pin list (``ops.pin_count_csr``), the reference's
+from its ELL-H view through the Pallas kernel.  The reference is
 evaluated op by op (``jax.disable_jit``): compiled, XLA's fused evaluation
 of ``rem − wtot + aff + noise`` rounds the noise-perturbed gains a few
 ulps differently, which reorders equal-gain moves in the capped
@@ -73,10 +75,9 @@ def _scan_inputs(k, b, rounds, seed=0):
 def _port_scan(port_hg, labs, cap, noise, force, k_pad, rounds, objective,
                use_kernel, nrounds=None):
     hc = tC.to_pincoo(port_hg, device=CPU)
-    ell = tC.to_ell_h(port_hg, device=CPU) if use_kernel else None
     out, obj = tR._hyper_refine_scan_batch(
         hc, T(labs), T(cap), T(noise), torch.as_tensor(force), k_pad, rounds,
-        objective, ell=ell,
+        objective, use_kernel=use_kernel,
         nrounds=None if nrounds is None else torch.as_tensor(nrounds))
     return out.numpy(), obj.numpy()
 
@@ -257,6 +258,34 @@ def test_kernel_path_equals_plain_path_end_to_end():
         parts.append(tML.run(tD.HypergraphMedium(hg, cfg, device="cpu"), 4,
                              0.03, 1))
     np.testing.assert_array_equal(parts[0], parts[1])
+
+
+@pytest.mark.parametrize("objective", ["km1", "cut"])
+def test_kernel_path_builds_no_ell_view(monkeypatch, objective):
+    """The kernel path reads the pin list: a kahypar run on it never builds
+    an ELL-H view, and every pin count comes from ``ops.pin_count_csr``."""
+    from repro_torch.core import hypergraph as tH
+    from repro_torch.kernels import ops as tops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("to_ell_h called on the kernel path")
+
+    monkeypatch.setattr(tC, "to_ell_h", refuse)
+    monkeypatch.setattr(tH, "to_ell_h", refuse)
+    calls = []
+    real = tops.pin_count_csr
+
+    def counted(*args):
+        calls.append(args[3].shape)
+        return real(*args)
+
+    monkeypatch.setattr(tops, "pin_count_csr", counted)
+    hg = tgen.planted_hypergraph(200, 300, blocks=4, seed=7)
+    cfg = dataclasses.replace(tD.PRESETS["eco"], use_kernel=True)
+    part = tML.run(tD.HypergraphMedium(hg, cfg, objective, device="cpu"),
+                   4, 0.03, 1)
+    assert tM.is_feasible(hg, part, 4, 0.03)
+    assert calls
 
 
 def test_device_none_needs_a_card():
