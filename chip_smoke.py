@@ -5,9 +5,11 @@
 
 Builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version, drives kaffpa end to end at a 1M-vertex mesh, kahypar
-end to end at a 131k-vertex power-law hypergraph, and zamba2-2.7B at full
-width (a 2048-token forward and a served request stream), and prints what
-it measured.  Any failure exits non-zero before the result line.  Phases:
+end to end at a 131k-vertex power-law hypergraph, zamba2-2.7B at full
+width (a 2048-token forward and a served request stream), and the node
+separator at the 1M-vertex mesh with a nested-dissection ordering and an
+edge partition beside it, and prints what it measured.  Any failure exits
+non-zero before the result line.  Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
     kernels/csrc/pin_count.cu and kernels/csrc/ssd_scan.cu for sm_90a (one
@@ -92,6 +94,31 @@ it measured.  Any failure exits non-zero before the result line.  Phases:
     per launch (state pass, chunk pass, output pass) by torch.profiler,
     from a trace that holds all 3 launches of each of its 10 calls.
 
+17. sep_affinity (kernel 1 at k = 3 over the neighbours' vertex weights,
+    ``ops.sep_weights``) against ``ref.affinity_ref`` on the same slot
+    weights at the sweep shapes below k = 130 and on grid2d(16, 16), whose
+    256 vertices fill their 256-row view (padding slots point at a real
+    vertex), B = 1 and 4, integer and float vertex weights: bit for bit.
+18. The separator main path: ``interface.node_separator`` with nparts=2,
+    imbalance=0.2, mode ECO, seed=1 on grid2d(1024, 1024).  The counts of
+    lp_affinity and sep_affinity launches and of ``to_ell`` calls are set
+    to 0 just before and read just after; the separator must be feasible,
+    pass ``verify_separator``, have launched sep_affinity, and have built
+    at most one ELL view per level.
+19. The same run with ``use_kernel=False``: identical labels, no launch
+    and no ELL view.
+20. sep_affinity at the main path's level-0 shape (its own labels, B = 1
+    and 4): bit for bit, then times as in phase 6 (CUDA events over
+    back-to-back calls) of the kernel's launch, the whole
+    ``ops.sep_affinity`` call, the plain version and ``scatter_add_`` on
+    the same ELL and slot weights (timed only), beside the bound (the
+    weight array, live slots' ids, labels and the (B, n_pad, 3) output).
+21. ``interface.reduced_nd`` (ECO) on grid2d(64, 64): a permutation, the
+    number of separator subproblems and waves, and the launches.
+22. ``edge_partition`` k=4 (ECO) on grid2d(256, 256): every edge in a
+    block of [0, 4), replication and balance beside a naive split's, and
+    lp_affinity launched.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
 """
@@ -129,6 +156,14 @@ SSD_SWEEP = [(2, 128, 8, 4, 64), (3, 256, 16, 8, 128), (1, 64, 32, 16, 32),
              (2, 200, 8, 8, 64)]
 # heads per row of B and C in phase 12's grouped form
 SSD_HEADS = (1, 3)
+# (n_pad, dmax) of SWEEP's shapes below k = 130, at the separator's k = 3
+SEP_SWEEP = [(128, 8), (256, 24), (384, 40), (256, 16)]
+# grid sides of phases 18-22: the separator main path (1,048,576
+# vertices), the ordering (cut to 4096 vertices: its recursion makes one
+# host-bound separator call per ~50 vertices, and 128 x 128 took 104 s on
+# an H100 80GB HBM3, 700.00 W) and the edge partition (a SPAC graph of
+# 261,120 vertices)
+SEP_GRID, ND_GRID, EP_GRID = 1024, 64, 256
 
 
 class SmokeError(RuntimeError):
@@ -921,6 +956,275 @@ def zamba2_phases(torch, np, dev, card) -> list:
     return rows
 
 
+def compare_sep(torch, nbr, wgt, vwgt, labels) -> float:
+    """sep_affinity on the card vs the plain version on the same slot
+    weights ``ops.sep_weights``; bit for bit (slots are summed in order).
+    Returns max |diff| (0)."""
+    from repro_torch.kernels import ops, ref
+    got = ops.sep_affinity(nbr, wgt, vwgt, labels)
+    want = ref.affinity_ref(nbr, ops.sep_weights(nbr, wgt, vwgt), labels, 3)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"sep_affinity shape {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    check(err == 0.0, f"sep_affinity disagrees with affinity_ref at "
+          f"{tuple(labels.shape)}x{tuple(nbr.shape)}: max |err| {err}")
+    return err
+
+
+def run_nodesep(torch, np, g, seed, dev, use_kernel=None):
+    """One 2-way separator run, ε = 0.2, with the counts of lp_affinity
+    launches, sep_affinity launches and ``to_ell`` calls zeroed just before
+    and read just after.  ``use_kernel=None`` goes through the C-API entry
+    point a user calls (its 3-label state read where the program hands it
+    to ``split_labels``); ``False`` runs the same engine on the plain path.
+    Returns (labels, wall s, counts, recorder)."""
+    from repro_torch import obs
+    from repro_torch.core import csr, interface
+    from repro_torch.core import multilevel as ML
+    from repro_torch.core.nodesep import driver as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+    rec = obs.Recorder("nodesep")
+    names = {"lp_affinity": LAUNCHES, "sep_affinity": ops.SEP_LAUNCHES,
+             "to_ell": csr.TO_ELL_BUILDS}
+    torch.cuda.synchronize()
+    for name in names.values():
+        obs.metrics.reset(name)
+    t0 = time.perf_counter()
+    if use_kernel is None:
+        captured = []
+        real = D.nodesep_labels
+
+        def recording(*args, **kwargs):
+            captured.append(real(*args, **kwargs))
+            return captured[-1]
+
+        D.nodesep_labels = recording
+        try:
+            num, sep = interface.node_separator(
+                g.n, None, g.xadj, None, g.adjncy, 2, 0.2, seed=seed,
+                mode=interface.ECO, report=rec, device=dev)
+        finally:
+            D.nodesep_labels = real
+        labels = captured[0]
+        check(num == len(sep) and np.array_equal(
+            sep, np.flatnonzero(labels == D.SEP)),
+              "node_separator's ids are not its labels' separator")
+    else:
+        cfg = dataclasses.replace(D.PRESETS["eco"], use_kernel=use_kernel)
+        labels = ML.run(D.SeparatorMedium(g, cfg, recorder=rec, device=dev),
+                        2, 0.2, seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (labels, wall, {k: int(obs.metrics.get(v))
+                           for k, v in names.items()}, rec)
+
+
+def nodesep_phases(torch, np, dev, card) -> dict:
+    """Phases 17-22; returns the sep_affinity row of the kernels line."""
+    from repro_torch import obs
+    from repro_torch.core import interface
+    from repro_torch.core.csr import to_coo, to_ell
+    from repro_torch.core.edgepart import edge_partition, naive_edge_partition
+    from repro_torch.core.nodesep import driver as D
+    from repro_torch.core.nodesep.refine import (separator_caps,
+                                                 separator_is_feasible,
+                                                 separator_weight)
+    from repro_torch.core.partition import edge_partition_metrics
+    from repro_torch.core.separator import verify_separator
+    from repro_torch.io.generators import grid2d
+    from repro_torch.kernels import lp_affinity, ops, ref
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+
+    # -- 17. sep_affinity (kernel 1 at k = 3) vs its plain version ---------
+    max_err, cases = 0.0, 0
+    for (n_pad, dmax) in SEP_SWEEP:
+        for b in (1, 4):
+            for integer in (True, False):
+                nbr, wgt, labels = affinity_inputs(
+                    torch, dev, n_pad, dmax, 3, b, True,
+                    seed=n_pad + dmax + b)
+                gen = torch.Generator(device=dev).manual_seed(n_pad + b)
+                vwgt = (torch.randint(1, 10, (n_pad,), generator=gen,
+                                      device=dev).float() if integer
+                        else torch.rand(n_pad, generator=gen, device=dev))
+                max_err = max(max_err, compare_sep(torch, nbr, wgt, vwgt,
+                                                   labels))
+                cases += 1
+    # n == n_pad: grid2d(16, 16) has 256 vertices in a 256-row view, so
+    # the padding slots' id n_pad - 1 is a real vertex of weight > 0
+    small = grid2d(16, 16)
+    coo = to_coo(small, device=dev)
+    ell = to_ell(small, row_tile=coo.n_pad, device=dev)
+    check(small.n == ell.n_pad, f"n={small.n} != n_pad={ell.n_pad}")
+    for b in (1, 4):
+        for integer in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(b + 2 * integer)
+            vwgt = (torch.randint(1, 10, (ell.n_pad,), generator=gen,
+                                  device=dev).float() if integer
+                    else torch.rand(ell.n_pad, generator=gen, device=dev))
+            labels = torch.randint(0, 3, (b, ell.n_pad), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            max_err = max(max_err, compare_sep(torch, ell.nbr, ell.wgt, vwgt,
+                                               labels))
+            cases += 1
+    log(f"sweep: sep_affinity == affinity_ref on ops.sep_weights at "
+        f"{len(SEP_SWEEP)} shapes + grid2d(16,16) (n == n_pad, padding "
+        f"slots aliasing vertex {ell.n_pad - 1}) x B=1,4 x integer and float "
+        f"vertex weights: {cases} cases bit for bit (max |err| {max_err:g})")
+
+    # -- 18. the separator main path at real size -------------------------
+    g = grid2d(SEP_GRID, SEP_GRID)
+    log(f"graph grid2d({SEP_GRID},{SEP_GRID}): n={g.n} m={g.m}")
+    labels, wall, counts, rec = run_nodesep(torch, np, g, 1, dev)
+    sep = np.flatnonzero(labels == D.SEP)
+    part2 = np.where(labels == 1, 1, 0)
+    t0 = time.perf_counter()
+    verified = verify_separator(g, part2, sep, 2)
+    verify_s = time.perf_counter() - t0
+    feas = separator_is_feasible(g, labels, 0.2)
+    blocks = [int(g.vwgt[labels == b].sum()) for b in (0, 1)]
+    levels = int(rec.counters().get("engine/levels", 0))
+    spans = span_seconds(rec, ("hierarchy", "initial_tournament",
+                               "uncoarsen"))
+    log(f"main path node_separator ECO eps=0.2: separator "
+        f"{len(sep)} vertices, weight {separator_weight(g, labels)} "
+        f"(geometric {SEP_GRID}), blocks {blocks} (cap "
+        f"{separator_caps(g, 0.2)[0]:.1f}) feasible={feas} "
+        f"verify_separator={verified} ({verify_s:.3f} s) wall_s={wall:.3f} "
+        f"levels={levels} launches={json.dumps(counts)} spans_s="
+        f"{json.dumps({n: round(s, 3) for n, s in spans.items()})}")
+    check(feas, "separator main path infeasible")
+    check(verified, "verify_separator failed on the main path")
+    check(counts["sep_affinity"] > 0,
+          "separator main path never launched sep_affinity")
+    check(0 < counts["to_ell"] <= levels, f"{counts['to_ell']} to_ell calls "
+          f"for {levels} levels")
+    main_launches = counts["sep_affinity"]
+
+    # -- 19. the same run on the plain path --------------------------------
+    labels2, wall2, counts2, _ = run_nodesep(torch, np, g, 1, dev,
+                                             use_kernel=False)
+    log(f"plain path node_separator ECO eps=0.2: separator "
+        f"{int((labels2 == D.SEP).sum())} vertices wall_s={wall2:.3f} "
+        f"launches={json.dumps(counts2)}")
+    check(counts2["lp_affinity"] == 0 and counts2["sep_affinity"] == 0,
+          "use_kernel=False launched lp_affinity")
+    check(counts2["to_ell"] == 0, "use_kernel=False built an ELL view")
+    check(np.array_equal(labels, labels2),
+          "separator kernel path and plain path labels differ")
+
+    # -- 20. sep_affinity at the main path's level-0 shape ----------------
+    coo = to_coo(g, device=dev)
+    ell = to_ell(g, row_tile=coo.n_pad, device=dev)
+    vw_nbr = ops.sep_weights(ell.nbr, ell.wgt, ell.vwgt)
+    n_pad, dmax = ell.nbr.shape
+    lab1 = torch.zeros(1, n_pad, dtype=torch.int32, device=dev)
+    lab1[0, :g.n] = torch.from_numpy(labels.astype(np.int32)).to(dev)
+    nbr_l = ell.nbr.long()
+    live = int((vw_nbr != 0).sum())
+    rows_out = {}
+    for b in (1, 4):
+        lab = lab1.expand(b, -1).contiguous()
+        if b > 1:      # other rows: other candidate 3-labellings
+            gen = torch.Generator(device=dev).manual_seed(b)
+            lab[1:] = torch.randint(0, 3, (b - 1, n_pad), generator=gen,
+                                    device=dev, dtype=torch.int32)
+        max_err = max(max_err, compare_sep(torch, ell.nbr, ell.wgt, ell.vwgt,
+                                           lab))
+
+        def library():
+            return torch.zeros(b, n_pad, 3, device=dev).scatter_add_(
+                2, lab.long()[:, nbr_l], vw_nbr.expand(b, -1, -1))
+
+        def kernel():
+            return ops.sep_affinity(ell.nbr, ell.wgt, ell.vwgt, lab,
+                                    vw_nbr=vw_nbr)
+
+        check(torch.equal(library(), kernel()), "scatter_add_ yardstick "
+              "disagrees with sep_affinity")
+        # as phase 6: the launch sep_affinity makes, then the whole wrapper
+        ms = cuda_ms(torch, lambda: lp_affinity.affinity_cuda(
+            ell.nbr, vw_nbr, lab, 3))
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, lambda: ref.affinity_ref(
+            ell.nbr, vw_nbr, lab, 3), iters=5)
+        library_ms = cuda_ms(torch, library, iters=5)
+        # the whole weight array (it marks the live slots), the neighbour
+        # ids of live slots only, the labels and the (B, n_pad, 3) output
+        nbytes = (vw_nbr.numel() * 4 + live * 4 + lab.numel() * 4
+                  + b * n_pad * 3 * 4)
+        bms, by = bound_ms(nbytes, b * live)
+        rows_out[b] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bms, bound_by=by)
+        log(f"sep_affinity B={b} n_pad={n_pad} dmax={dmax} k=3 live slots "
+            f"{live}: kernel {ms:.4f} ms ({call_ms:.4f} ms per "
+            f"ops.sep_affinity call, both back to back), plain "
+            f"{plain_ms:.4f} ms, scatter_add_ {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({nbytes} bytes at {PEAK_BYTES_PER_S / 1e12} "
+            f"TB/s) [{card}]")
+
+    # -- 21. nested-dissection ordering ------------------------------------
+    gnd = grid2d(ND_GRID, ND_GRID)
+    waves = []
+    real_wave = D.nodesep_labels_wave
+
+    def counted_wave(graphs, *args, **kwargs):
+        waves.append(len(graphs))
+        return real_wave(graphs, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    for name in (LAUNCHES, ops.SEP_LAUNCHES):
+        obs.metrics.reset(name)
+    D.nodesep_labels_wave = counted_wave
+    t0 = time.perf_counter()
+    try:
+        inv = interface.reduced_nd(gnd.n, gnd.xadj, gnd.adjncy, seed=1,
+                                   mode=interface.ECO, device=dev)
+    finally:
+        D.nodesep_labels_wave = real_wave
+    torch.cuda.synchronize()
+    nd_wall = time.perf_counter() - t0
+    nd_launches = {"lp_affinity": int(obs.metrics.get(LAUNCHES)),
+                   "sep_affinity": int(obs.metrics.get(ops.SEP_LAUNCHES))}
+    log(f"reduced_nd ECO grid2d({ND_GRID},{ND_GRID}) (n={gnd.n}): "
+        f"wall_s={nd_wall:.3f} separator subproblems={sum(waves)} in "
+        f"{len(waves)} waves {waves} launches={json.dumps(nd_launches)}")
+    check(np.array_equal(np.sort(inv), np.arange(gnd.n)),
+          "reduced_nd did not return a permutation")
+    check(nd_launches["sep_affinity"] > 0,
+          "reduced_nd never launched sep_affinity")
+
+    # -- 22. edge partitioning ---------------------------------------------
+    gep = grid2d(EP_GRID, EP_GRID)
+    torch.cuda.synchronize()
+    obs.metrics.reset(LAUNCHES)
+    t0 = time.perf_counter()
+    epart = edge_partition(gep, 4, preset="eco", seed=1, device=dev)
+    torch.cuda.synchronize()
+    ep_wall = time.perf_counter() - t0
+    ep_launches = int(obs.metrics.get(LAUNCHES))
+    metrics = edge_partition_metrics(gep, epart, 4)
+    naive = edge_partition_metrics(gep, naive_edge_partition(gep, 4), 4)
+    log(f"edge_partition ECO k=4 grid2d({EP_GRID},{EP_GRID}) (m={gep.m}, "
+        f"SPAC n={2 * gep.m}): {json.dumps(metrics)} (naive replication "
+        f"{naive['replication']:.4f}) wall_s={ep_wall:.3f} "
+        f"launches={ep_launches}")
+    check(epart.shape == (gep.m,) and int(epart.min()) >= 0
+          and int(epart.max()) < 4, "an edge has no block in [0, 4)")
+    check(ep_launches > 0, "edge_partition never launched lp_affinity")
+
+    main = rows_out[1]    # the scan launches one row per refine
+    return {"name": "sep_affinity", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lp_affinity.cu",
+            "replaces": "src/repro/kernels/lp_affinity.py:30",
+            "launches": main_launches, "max_abs_err": max_err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "call_ms": main["call_ms"],
+            "shape": [1, n_pad, dmax, 3]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found: run chip_smoke.py "
@@ -1067,6 +1371,7 @@ def main() -> int:
     main = rows_out[1]    # level-0 refinement launches one row
     pin_row = kahypar_phases(torch, np, dev, card)
     ssd_rows = zamba2_phases(torch, np, dev, card)
+    sep_row = nodesep_phases(torch, np, dev, card)
     log(json.dumps({"kernels": [{
         "name": "lp_affinity", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lp_affinity.cu",
@@ -1075,7 +1380,7 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "shape": [1, n_pad, dmax, k_main]}, pin_row, *ssd_rows]}))
+        "shape": [1, n_pad, dmax, k_main]}, pin_row, *ssd_rows, sep_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs.registry import metrics
+
+#: Counter of `to_ell` calls: the host-built ELL views and their copies.
+TO_ELL_BUILDS = "views/to_ell"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device rule of every entry point: ``None`` means ``"cuda"``.
@@ -311,7 +316,11 @@ def coo_from_arrays(src, dst, w, vwgt, device) -> CooGraph:
 
 def to_ell(g: Graph, row_tile: int = 128, d_mult: int = 8,
            dmax_cap: Optional[int] = None, device=None) -> EllGraph:
-    """CSR → padded ELL. ``dmax_cap`` truncates hub rows (heaviest edges kept)."""
+    """CSR → padded ELL. ``dmax_cap`` truncates hub rows (heaviest edges kept).
+
+    Built on the host and copied to ``device``; each call counts one
+    ``TO_ELL_BUILDS``."""
+    metrics.inc(TO_ELL_BUILDS)
     n = g.n
     deg = g.degrees()
     dmax = int(deg.max()) if n else 0

@@ -2,10 +2,10 @@
 ``interface/kaHIP_interface.h``.
 
 Functions take the CSR arrays (n, vwgt, xadj, adjcwgt, adjncy) exactly as the
-C API does (vwgt/adjcwgt may be None), or for ``kahypar`` the hMETIS
-arrays (eptr, eind), and return the C API's output parameters as Python
-values.  ``device=None`` runs on CUDA and raises
-without a card; pass ``device="cpu"`` to run on the CPU.
+C API does (vwgt/adjcwgt may be None; the orderings take xadj/adjncy
+only), or for ``kahypar`` the hMETIS arrays (eptr, eind), and return the C
+API's output parameters as Python values.  ``device=None`` runs on CUDA
+and raises without a card; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.csr import Graph
 
 # mode constants (paper §5.2)
@@ -81,3 +82,64 @@ def kahypar(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
                      time_limit=time_limit, report=report, device=device)
     score = H.connectivity if objective == "km1" else H.cut_net
     return score(hg, part), part
+
+
+def node_separator(n: int, vwgt, xadj, adjcwgt, adjncy, nparts: int,
+                   imbalance: float, suppress_output: bool = True,
+                   seed: int = 0, mode: int = ECO, multilevel: bool = True,
+                   memetic: bool = False, report=None, device=None):
+    """→ (num_separator_vertices, separator ids).
+
+    nparts == 2 (the recommended §5.2 setting) runs the multilevel
+    separator engine (core/nodesep), which optimizes separator weight at
+    every hierarchy level; ``multilevel=False`` selects the post-hoc
+    two-step construction (partition, then vertex-cover the boundary).
+    nparts > 2 always uses the pairwise post-hoc construction.
+    ``memetic=True`` (the memetic island driver) is not ported yet.
+    """
+    from repro_torch.core import kaffpa as K
+    from repro_torch.core import separator as S
+    if memetic:
+        raise NotImplementedError(
+            "the memetic node separator waits for the memetic engine "
+            "(ROADMAP.md queue 1 item 7)")
+    g = _graph(n, vwgt, xadj, adjcwgt, adjncy)
+    if nparts == 2 and multilevel:
+        from repro_torch.core.nodesep import multilevel_node_separator
+        sep, _ = multilevel_node_separator(g, imbalance, _MODE_NAMES[mode],
+                                           seed=seed, report=report,
+                                           device=device)
+        return len(sep), sep
+    with obs.use(report):
+        part = K.kaffpa(g, nparts, imbalance, _MODE_NAMES[mode], seed=seed,
+                        device=device)
+        if nparts == 2:
+            sep, _ = S.node_separator(g, imbalance, _MODE_NAMES[mode], seed,
+                                      part=part)
+        else:
+            sep = S.partition_to_vertex_separator(g, part, nparts)
+    return len(sep), sep
+
+
+def _inverse(order: np.ndarray) -> np.ndarray:
+    inv = np.empty(len(order), dtype=np.int64)
+    inv[order] = np.arange(len(order))
+    return inv
+
+
+def reduced_nd(n: int, xadj, adjncy, suppress_output: bool = True,
+               seed: int = 0, mode: int = ECO, device=None):
+    """Node ordering → ordering array (ordering[v] = elimination position)."""
+    from repro_torch.core import ordering as O
+    g = _graph(n, None, xadj, None, adjncy)
+    return _inverse(O.reduced_nd(g, _MODE_NAMES[mode], seed=seed,
+                                 device=device))
+
+
+def fast_reduced_nd(n: int, xadj, adjncy, suppress_output: bool = True,
+                    seed: int = 0, mode: int = FAST, device=None):
+    """The fast node ordering (fast preset, reductions 0, 3, 4) →
+    ordering array (ordering[v] = elimination position)."""
+    from repro_torch.core import ordering as O
+    g = _graph(n, None, xadj, None, adjncy)
+    return _inverse(O.fast_reduced_nd(g, seed=seed, device=device))

@@ -66,7 +66,8 @@ def capped_accept(labels: torch.Tensor, proposal: torch.Tensor,
     """Accept moves in priority order (desc) per target until capacity.
 
     ``labels``/``proposal``/``priority`` are (B, n), ``sizes`` (B, c),
-    ``vwgt`` (n,) and ``cap`` (c,).  Guarantee: for every row and target
+    ``vwgt`` (n,) or (B, n), and ``cap`` (c,), shared by every row, or
+    (B, c), one row of caps per row.  Guarantee: for every row and target
     t, size[t] + accepted_inflow[t] <= cap[t] (outflow ignored →
     conservative).  Returns new labels.
     """
@@ -82,7 +83,8 @@ def capped_accept(labels: torch.Tensor, proposal: torch.Tensor,
     base = torch.where(newrun, cums - vw_s, -torch.inf)
     base = torch.cummax(base, -1).values
     inflow = cums - base                  # inclusive inflow within target run
-    ok_s = sizes.gather(-1, t_s) + inflow <= cap[t_s]
+    ok_s = (sizes.gather(-1, t_s) + inflow
+            <= cap.expand(t_s.shape[0], -1).gather(-1, t_s))
     ok = torch.zeros_like(moving).scatter_(-1, order, ok_s)
     return torch.where(moving & ok, proposal, labels)
 

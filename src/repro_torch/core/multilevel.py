@@ -300,6 +300,47 @@ def initial_partition(level: Level, k: int, eps: float, seed: int
         return _tournament_pick(medium, refined, k, eps, seed)
 
 
+def initial_partition_wave(levels: Sequence[Level], k: int, eps: float,
+                           seeds: Sequence[int]) -> List[np.ndarray]:
+    """Tournaments for SEVERAL coarsest levels in batched device calls.
+
+    Sibling subproblems (the nested-dissection wave) usually land in the
+    same pow2 shape bucket; levels whose media report the same
+    ``bucket_key()`` get their stacked candidate tournaments refined by one
+    ``refine_multi`` call instead of one call per subproblem.  Per level
+    the result is bit-identical to ``initial_partition`` — rows carry the
+    same per-level generator seeds, so batching only changes how many
+    launches run them.  Media without bucket_key/refine_multi run per
+    level.
+    """
+    media = [lv.medium for lv in levels]
+    if (len(levels) < 2
+            or any(not hasattr(m, "bucket_key")
+                   or not hasattr(m, "refine_multi") for m in media)):
+        return [initial_partition(lv, k, eps, s)
+                for lv, s in zip(levels, seeds)]
+    cands = [m.initial_candidates(k, eps, s) for m, s in zip(media, seeds)]
+    groups: dict = {}
+    for i, m in enumerate(media):
+        groups.setdefault(m.bucket_key(), []).append(i)
+    refined: List[Optional[List[np.ndarray]]] = [None] * len(levels)
+    for idx in groups.values():
+        if len(idx) == 1:
+            i = idx[0]
+            refined[i] = media[i].refine_batch(cands[i], k, eps, seeds[i])
+        else:
+            outs = media[idx[0]].refine_multi(
+                [media[i] for i in idx], [cands[i] for i in idx],
+                k, eps, [seeds[i] for i in idx])
+            for j, i in enumerate(idx):
+                refined[i] = outs[j]
+    picks = []
+    for i, m in enumerate(media):
+        with recorder_of(m).span("initial_tournament", n=m.n, k=k):
+            picks.append(_tournament_pick(m, refined[i], k, eps, seeds[i]))
+    return picks
+
+
 # ---------------------------------------------------------------------------
 # uncoarsening
 # ---------------------------------------------------------------------------

@@ -79,6 +79,27 @@ def evaluate(g: Graph, part: np.ndarray, k: int, eps: float = 0.03) -> dict:
     }
 
 
+def edge_partition_metrics(g: Graph, edge_part: np.ndarray, k: int) -> dict:
+    """Edge-partition quality: vertex replication factor (paper §2.7).
+
+    edge_part[j] is the block of undirected edge j (edges in from_edges
+    canonical lo<hi order).
+    """
+    src = g.edge_sources()
+    fwd = src < g.adjncy
+    u, v = src[fwd], g.adjncy[fwd]
+    reps = np.unique(np.stack([np.concatenate([u, v]),
+                               np.concatenate([edge_part, edge_part])], 1),
+                     axis=0)
+    counts = np.bincount(reps[:, 0], minlength=g.n)
+    sizes = np.bincount(edge_part, minlength=k)
+    return {
+        "replication": float(counts.sum()) / max(g.n, 1),
+        "max_block_edges": int(sizes.max()),
+        "balance": float(sizes.max()) / max(int(np.ceil(len(u) / k)), 1),
+    }
+
+
 # -- device -------------------------------------------------------------------
 
 def edge_cut_device(g: CooGraph, labels: torch.Tensor) -> torch.Tensor:

@@ -91,3 +91,32 @@ def graphchecker(path: str) -> list:
     except GraphFormatError as e:
         return [str(e)]
     return g.check(raise_on_error=False)
+
+
+# -- output formats (§3.2) ---------------------------------------------------
+
+def write_separator(part: np.ndarray, sep_ids: np.ndarray, k: int,
+                    path: str) -> None:
+    """Separator format: separator nodes get block id k, others keep theirs."""
+    out = np.asarray(part, dtype=np.int64).copy()
+    out[np.asarray(sep_ids, dtype=np.int64)] = k
+    np.savetxt(path, out, fmt="%d")
+
+
+def read_separator(path: str, k: int):
+    """Inverse of ``write_separator``: returns (part, sep_ids).
+
+    Vertices labelled ``k`` are the separator; their ``part`` entry is reset
+    to block 0 (the information the format drops).  ``k`` is required
+    because the format does not encode it — inferring it from the maximum
+    label would misread an empty-separator file (max label k−1) as having
+    the whole top block in the separator.
+    """
+    raw = np.loadtxt(path, dtype=np.int64, ndmin=1)
+    if len(raw) and raw.max() > k:
+        raise GraphFormatError(
+            f"separator file has label {int(raw.max())} > k={k}")
+    sep_ids = np.flatnonzero(raw == k)
+    part = raw.copy()
+    part[sep_ids] = 0
+    return part, sep_ids

@@ -21,6 +21,11 @@ from repro_torch.kernels import lp_affinity as _lpk
 from repro_torch.kernels import pin_affinity as _pink
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssdk
+from repro_torch.obs import metrics
+
+#: The count of ``sep_affinity`` calls that launched the CUDA kernel (each
+#: is also one of ``lp_affinity``'s launches, at k = 3).
+SEP_LAUNCHES = "kernels/sep_affinity/launches"
 
 #: Machine-readable form of the masking contract above, keyed by public op:
 #: ``mask`` is the argument whose zeros mark padding slots, ``garbage`` the
@@ -30,6 +35,7 @@ from repro_torch.kernels import ssd_scan as _ssdk
 #: state, and so every real output, unchanged.
 PADDING_CONTRACT = {
     "lp_affinity": {"mask": "wgt", "garbage": ("nbr",)},
+    "sep_affinity": {"mask": "wgt", "garbage": ("nbr",)},
     "pin_count": {"mask": "pin_mask", "garbage": ("pins",)},
     "pin_count_csr": {"mask": "mask", "garbage": ("pv",)},
     "pin_affinity": {"mask": "pin_mask", "garbage": ("pins", "vnets")},
@@ -48,6 +54,34 @@ def lp_affinity(nbr: torch.Tensor, wgt: torch.Tensor, labels: torch.Tensor,
         return _ref.affinity_ref(nbr, wgt, labels, k)
     nbr, wgt = (pad_to(t, 1, 4).contiguous() for t in (nbr, wgt))
     return _lpk.affinity_cuda(nbr, wgt, labels.contiguous(), k)
+
+
+def sep_weights(nbr: torch.Tensor, wgt: torch.Tensor,
+                vwgt: torch.Tensor) -> torch.Tensor:
+    """(n_pad, dmax) slot weights of the separator gain: each live slot's
+    neighbour vertex weight, 0 on padding.  ``wgt > 0`` gates the gather,
+    never the slot id: a padding slot points at n_pad - 1, a real vertex
+    when n == n_pad.  It depends on the graph alone, so callers build it
+    once per view."""
+    return torch.where(wgt > 0, vwgt[nbr.long()], 0.0)
+
+
+def sep_affinity(nbr: torch.Tensor, wgt: torch.Tensor, vwgt: torch.Tensor,
+                 labels: torch.Tensor, vw_nbr=None) -> torch.Tensor:
+    """ELL graph + batched 3-labels (B, n_pad) → (B, n_pad, 3) neighbour
+    *vertex-weight* histogram, the separator-gain contraction:
+
+        aff[b, v, c] = Σ_j vwgt[nbr[v, j]] · [wgt[v, j] > 0]
+                           · [labels[b, nbr[v, j]] == c]
+
+    ``lp_affinity`` at k = 3 over ``sep_weights(nbr, wgt, vwgt)``, which a
+    caller that holds it passes as ``vw_nbr``."""
+    if vw_nbr is None:
+        vw_nbr = sep_weights(nbr, wgt, vwgt)
+    aff = lp_affinity(nbr, vw_nbr, labels, 3)
+    if nbr.device.type == "cuda":
+        metrics.inc(SEP_LAUNCHES)
+    return aff
 
 
 def pin_count(pins: torch.Tensor, pin_mask: torch.Tensor,

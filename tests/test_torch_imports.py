@@ -1,7 +1,8 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
 tool import neither jax nor the JAX package `repro`, so the port installs
-and runs without them: a tiny kaffpa, a tiny kahypar, a reduced zamba2
-forward and one served request run with both blocked."""
+and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
+separator and ordering, a reduced zamba2 forward and one served request
+run with both blocked."""
 import ast
 import os
 import pathlib
@@ -27,6 +28,7 @@ def test_no_jax_or_reference_imports_in_source():
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py"]
     assert len(files) > 25
     assert PORT / "core" / "hypergraph" / "refine.py" in files
+    assert PORT / "core" / "nodesep" / "refine.py" in files
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, (f, bad)
@@ -53,6 +55,13 @@ def test_port_runs_with_jax_and_reference_blocked():
                                        hg.eind, 2, 0.05, seed=1,
                                        device="cpu")
         assert 0 < km1 < 90 and len(hpart) == hg.n
+        nsep, sep = interface.node_separator(g.n, None, g.xadj, None,
+                                             g.adjncy, 2, 0.2, seed=1,
+                                             device="cpu")
+        assert 0 < nsep == len(sep) <= 12
+        inv = interface.reduced_nd(g.n, g.xadj, g.adjncy, seed=1,
+                                   device="cpu")
+        assert sorted(inv) == list(range(g.n))
         import torch
         from repro_torch.configs.base import get_config
         from repro_torch.models import transformer as T
