@@ -3,8 +3,8 @@
 The hypergraph sibling of the graph pipeline: dual-CSR `Hypergraph`
 container with padded ELL/COO torch views, LP-clustering coarsening,
 greedy hypergraph growing, size-constrained LP refinement (cut-net and
-connectivity objectives, the CUDA pin-count kernel on the hot path) and
-the `kahypar` multilevel driver.
+connectivity objectives, the CUDA pin-count kernel on the hot path), the
+`kahypar` multilevel driver and its memetic sibling `kahyparE`.
 """
 from repro_torch.core.hypergraph.container import (EllHypergraph, Hypergraph,
                                                    HypergraphFormatError,
@@ -15,7 +15,7 @@ from repro_torch.core.hypergraph.coarsen import (clique_expansion, contract,
                                                  lp_clustering, project,
                                                  star_expansion)
 from repro_torch.core.hypergraph.driver import (
-    HypergraphMedium, KahyparConfig, PRESETS, kahypar,
+    HypergraphMedium, KahyparConfig, PRESETS, kahypar, kahyparE,
     multilevel_hypergraph_partition)
 from repro_torch.core.hypergraph.initial import (greedy_growing,
                                                  random_partition)
@@ -34,6 +34,6 @@ __all__ = [
     "balance", "block_weights", "connectivity", "cut_net", "evaluate",
     "is_feasible", "net_lambdas",
     "refine_hypergraph",
-    "HypergraphMedium", "KahyparConfig", "PRESETS", "kahypar",
+    "HypergraphMedium", "KahyparConfig", "PRESETS", "kahypar", "kahyparE",
     "multilevel_hypergraph_partition",
 ]

@@ -125,12 +125,13 @@ class HypergraphMedium(ML.ViewCache):
         return out
 
     def refine_batch(self, parts: Sequence[np.ndarray], k: int, eps: float,
-                     seed: int) -> List[np.ndarray]:
+                     seed: int, seeds: Optional[Sequence[int]] = None
+                     ) -> List[np.ndarray]:
         return refine_hypergraph_batch(self.hg, list(parts), k, eps,
                                        rounds=self.cfg.refine_rounds,
                                        seed=seed, objective=self.obj,
                                        use_kernel=self.use_kernel,
-                                       hc=self.views)
+                                       hc=self.views, seeds=seeds)
 
     def polish(self, part: np.ndarray, k: int, eps: float,
                seed: int) -> np.ndarray:
@@ -191,3 +192,38 @@ def kahypar(hg: Hypergraph, k: int, eps: float = 0.03, preset: str = "eco",
                               device=dev)
     return ML.run(medium, k, eps, seed, vcycles=vcycles,
                   time_limit=time_limit, input_partition=input_partition)
+
+
+def kahyparE(hg: Hypergraph, k: int, eps: float = 0.03, preset: str = "eco",
+             seed: int = 0, objective: str = "km1", n_islands: int = 2,
+             population: int = 2, time_limit: float = 10.0,
+             generations: Optional[int] = None, migrate: bool = True,
+             mesh=None, on_generation=None, report=None,
+             device=None) -> np.ndarray:
+    """The ``kahyparE`` program: memetic multilevel hypergraph partitioning
+    (the KaHyParE analogue of kaffpaE) on ``device`` (None = CUDA; raises
+    without a card unless ``device="cpu"``).
+
+    Rides the medium-generic island driver over `HypergraphMedium` for
+    either objective.  ``generations`` selects a deterministic generation
+    count instead of the ``time_limit`` wall-clock budget.  ``mesh`` must
+    be None (the driver raises on one): island meshes, and the
+    distributed parhyp polish of every child on a multi-device mesh, wait
+    for ROADMAP.md queue 1 item 9.
+    """
+    from repro_torch.core import memetic as MEM
+    MEM.validate_memetic_params(n_islands, population, time_limit,
+                                generations)
+    if objective not in ("km1", "cut"):
+        raise ValueError(f"unknown objective {objective!r}")
+    dev = resolve_device(device)
+    if k <= 1:
+        return np.zeros(hg.n, dtype=np.int64)
+    medium = HypergraphMedium(hg, PRESETS[preset], objective,
+                              recorder=report, device=dev)
+    cfg = MEM.MemeticConfig(n_islands=n_islands, population=population,
+                            time_limit=time_limit, generations=generations,
+                            migrate=migrate)
+    state = MEM.evolve_islands(medium, k, eps, cfg, seed, mesh=mesh,
+                               on_generation=on_generation)
+    return state.best_part()

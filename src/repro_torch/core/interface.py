@@ -9,7 +9,7 @@ and raises without a card; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -21,6 +21,9 @@ FAST, ECO, STRONG, FASTSOCIAL, ECOSOCIAL, STRONGSOCIAL = range(6)
 _MODE_NAMES = {FAST: "fast", ECO: "eco", STRONG: "strong",
                FASTSOCIAL: "fastsocial", ECOSOCIAL: "ecosocial",
                STRONGSOCIAL: "strongsocial"}
+
+MAPMODE_MULTISECTION = 0
+MAPMODE_BISECTION = 1
 
 
 def _graph(n, vwgt, xadj, adjcwgt, adjncy) -> Graph:
@@ -58,6 +61,40 @@ def kaffpa_balance_NE(n: int, vwgt, xadj, adjcwgt, adjncy, nparts: int,
     return edge_cut(g, part), part
 
 
+def kaffpaE(n: int, vwgt, xadj, adjcwgt, adjncy, nparts: int,
+            imbalance: float, time_limit: float = 10.0,
+            suppress_output: bool = True, seed: int = 0, mode: int = ECO,
+            n_islands: int = 4, population: int = 4, mesh=None,
+            generations=None, report=None, device=None):
+    """Memetic partitioner call (the ``kaffpaE`` program on the
+    core/memetic island driver) → (edgecut, part).
+
+    Validates the memetic knobs up front (``n_islands``/``population``
+    must be positive, ``time_limit`` finite and >= 0 — 0 keeps the paper's
+    initial-population-only semantics); ``generations`` selects a
+    deterministic generation count instead of the wall-clock budget.
+    ``mesh`` must be None (island meshes wait for ROADMAP.md queue 1
+    item 9).
+    """
+    from repro_torch.core import evolve as E
+    from repro_torch.core.partition import edge_cut
+    g = _graph(n, vwgt, xadj, adjcwgt, adjncy)
+    with obs.use(report):
+        part = E.kaffpaE(g, nparts, imbalance, _MODE_NAMES[mode],
+                         n_islands=n_islands, population=population,
+                         time_limit=time_limit, seed=seed, mesh=mesh,
+                         generations=generations, device=device)
+    return edge_cut(g, part), part
+
+
+def _hypergraph(n, vwgt, ewgt, eptr, eind):
+    from repro_torch.core import hypergraph as H
+    return H.Hypergraph.from_arrays(
+        n, np.asarray(eptr), np.asarray(eind),
+        None if ewgt is None else np.asarray(ewgt),
+        None if vwgt is None else np.asarray(vwgt))
+
+
 def kahypar(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
             imbalance: float, suppress_output: bool = True, seed: int = 0,
             mode: int = ECO, objective: str = "km1",
@@ -72,10 +109,7 @@ def kahypar(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
     and restart-budget knobs (same semantics as the kaffpa entry).
     """
     from repro_torch.core import hypergraph as H
-    hg = H.Hypergraph.from_arrays(
-        n, np.asarray(eptr), np.asarray(eind),
-        None if ewgt is None else np.asarray(ewgt),
-        None if vwgt is None else np.asarray(vwgt))
+    hg = _hypergraph(n, vwgt, ewgt, eptr, eind)
     preset = _MODE_NAMES[mode].replace("social", "")   # no social split here
     part = H.kahypar(hg, nparts, imbalance, preset, seed=seed,
                      objective=objective, vcycles=vcycles,
@@ -84,26 +118,59 @@ def kahypar(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
     return score(hg, part), part
 
 
+def kahyparE(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
+             imbalance: float, time_limit: float = 10.0,
+             suppress_output: bool = True, seed: int = 0, mode: int = ECO,
+             objective: str = "km1", n_islands: int = 2,
+             population: int = 2, generations=None, mesh=None,
+             report=None, device=None):
+    """Memetic hypergraph partitioner call (the ``kahyparE`` program) →
+    (objval, part).
+
+    Same array convention as the ``kahypar`` entry; ``objective`` ∈
+    {"km1", "cut"}.  The memetic knobs are validated up front;
+    ``generations`` selects a deterministic generation count instead of
+    the ``time_limit`` wall-clock budget; ``mesh`` must be None.
+    """
+    from repro_torch.core import hypergraph as H
+    hg = _hypergraph(n, vwgt, ewgt, eptr, eind)
+    preset = _MODE_NAMES[mode].replace("social", "")   # no social split here
+    part = H.kahyparE(hg, nparts, imbalance, preset, seed=seed,
+                      objective=objective, n_islands=n_islands,
+                      population=population, time_limit=time_limit,
+                      generations=generations, mesh=mesh, report=report,
+                      device=device)
+    score = H.connectivity if objective == "km1" else H.cut_net
+    return score(hg, part), part
+
+
 def node_separator(n: int, vwgt, xadj, adjcwgt, adjncy, nparts: int,
                    imbalance: float, suppress_output: bool = True,
                    seed: int = 0, mode: int = ECO, multilevel: bool = True,
-                   memetic: bool = False, report=None, device=None):
+                   memetic: bool = False, time_limit: float = 5.0,
+                   n_islands: int = 2, population: int = 2, report=None,
+                   device=None):
     """→ (num_separator_vertices, separator ids).
 
     nparts == 2 (the recommended §5.2 setting) runs the multilevel
     separator engine (core/nodesep), which optimizes separator weight at
-    every hierarchy level; ``multilevel=False`` selects the post-hoc
-    two-step construction (partition, then vertex-cover the boundary).
-    nparts > 2 always uses the pairwise post-hoc construction.
-    ``memetic=True`` (the memetic island driver) is not ported yet.
+    every hierarchy level; ``memetic=True`` evolves separator states on
+    the memetic island driver instead (``time_limit`` seconds,
+    ``n_islands`` × ``population``); ``multilevel=False`` selects the
+    post-hoc two-step construction (partition, then vertex-cover the
+    boundary).  nparts > 2 always uses the pairwise post-hoc construction.
     """
     from repro_torch.core import kaffpa as K
     from repro_torch.core import separator as S
-    if memetic:
-        raise NotImplementedError(
-            "the memetic node separator waits for the memetic engine "
-            "(ROADMAP.md queue 1 item 7)")
     g = _graph(n, vwgt, xadj, adjcwgt, adjncy)
+    if nparts == 2 and memetic:
+        from repro_torch.core.nodesep import memetic_node_separator
+        sep, _ = memetic_node_separator(g, imbalance, _MODE_NAMES[mode],
+                                        seed=seed, n_islands=n_islands,
+                                        population=population,
+                                        time_limit=time_limit,
+                                        report=report, device=device)
+        return len(sep), sep
     if nparts == 2 and multilevel:
         from repro_torch.core.nodesep import multilevel_node_separator
         sep, _ = multilevel_node_separator(g, imbalance, _MODE_NAMES[mode],
@@ -143,3 +210,25 @@ def fast_reduced_nd(n: int, xadj, adjncy, suppress_output: bool = True,
     from repro_torch.core import ordering as O
     g = _graph(n, None, xadj, None, adjncy)
     return _inverse(O.fast_reduced_nd(g, seed=seed, device=device))
+
+
+def process_mapping(n: int, vwgt, xadj, adjcwgt, adjncy,
+                    hierarchy_parameter: Sequence[int],
+                    distance_parameter: Sequence[int],
+                    hierarchy_depth: int, imbalance: float,
+                    suppress_output: bool = True, seed: int = 0,
+                    mode_partitioning: int = ECO,
+                    mode_mapping: int = MAPMODE_MULTISECTION, device=None):
+    """→ (edgecut, qap, part) — §5.2 Process Mapping: a kaffpa partition
+    into prod(hierarchy) blocks, each block's id mapped to its processor."""
+    from repro_torch.core import mapping as M
+    from repro_torch.core.partition import edge_cut
+    g = _graph(n, vwgt, xadj, adjcwgt, adjncy)
+    hierarchy = list(hierarchy_parameter)[:hierarchy_depth]
+    distances = list(distance_parameter)[:hierarchy_depth]
+    part, mapping, qap = M.kaffpa_with_mapping(
+        g, hierarchy, distances, imbalance,
+        _MODE_NAMES[mode_partitioning], seed=seed, device=device)
+    # remap block ids through the processor assignment
+    final = mapping[part]
+    return edge_cut(g, final), qap, final

@@ -147,12 +147,13 @@ class GraphMedium(ML.ViewCache):
         return self.polish(out, k, eps, seed)
 
     def refine_batch(self, parts: Sequence[np.ndarray], k: int, eps: float,
-                     seed: int) -> List[np.ndarray]:
+                     seed: int, seeds: Optional[Sequence[int]] = None
+                     ) -> List[np.ndarray]:
         coo, ell = self.views
         return R.refine_kway_batch(self.g, list(parts), k, eps,
                                    rounds=self.cfg.refine_rounds, seed=seed,
                                    coo=coo, ell=ell,
-                                   use_kernel=self.use_kernel)
+                                   use_kernel=self.use_kernel, seeds=seeds)
 
     def polish(self, part: np.ndarray, k: int, eps: float,
                seed: int) -> np.ndarray:

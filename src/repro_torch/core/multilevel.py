@@ -22,9 +22,10 @@ recorder resolved by `recorder_of` — either the medium's
 recorder installed every hook is the no-op `obs.NULL`; extra objective
 evaluations are guarded by ``rec.enabled``.
 
-Protected coarsening (V-cycles §2.1) splits every cluster by the block
-signature of the protected partitions before contraction, so each
-protected partition stays exactly representable at every coarse level.
+Protected coarsening (V-cycles §2.1, the memetic combine operator §2.2)
+splits every cluster by the block signature of the protected partitions
+before contraction, so each protected partition stays exactly
+representable at every coarse level.
 """
 from __future__ import annotations
 
@@ -142,8 +143,11 @@ class Medium(Protocol):
         ...
 
     def refine_batch(self, parts: Sequence[np.ndarray], k: int, eps: float,
-                     seed: int) -> List[np.ndarray]:
-        """Refine several candidates in one batched device call."""
+                     seed: int, seeds: Optional[Sequence[int]] = None
+                     ) -> List[np.ndarray]:
+        """Refine several candidates in one batched device call; ``seeds``
+        overrides the per-row generator seeds (the memetic sweep passes
+        one per island)."""
         ...
 
     def polish(self, part: np.ndarray, k: int, eps: float,
@@ -369,8 +373,31 @@ def multilevel(medium: Medium, k: int, eps: float, seed: int) -> np.ndarray:
         return uncoarsen(levels, part_c, k, eps, seed)
 
 
+def population(medium: Medium, k: int, eps: float, seed: int, size: int,
+               stride: int = 31) -> List[np.ndarray]:
+    """Independent multilevel runs at strided seeds — the initial-population
+    hook for the memetic island driver.  All runs share the medium's cached
+    level-0 device views.
+
+    Each member gets the preset's full V-cycle schedule, exactly as `run`
+    applies it — so member j is bit-identical to ``run(medium, k, eps,
+    seed + stride*j)`` without a time budget.  That identity (member 0 at
+    the base seed == one single run) is what makes the memetic drivers
+    structurally never worse than a single run at any preset."""
+    ncyc = medium.params.vcycles
+    out = []
+    with recorder_of(medium).span("population", size=size):
+        for j in range(size):
+            s = seed + stride * j
+            part = multilevel(medium, k, eps, s)
+            for cyc in range(1, ncyc):
+                part = vcycle(medium, part, k, eps, s + 7919 * cyc)
+            out.append(part)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# iterated multilevel (V-cycles)
+# iterated multilevel (V-cycles) and the evolutionary combine operator
 # ---------------------------------------------------------------------------
 
 def vcycle(medium: Medium, part: np.ndarray, k: int, eps: float,
@@ -397,6 +424,29 @@ def vcycle(medium: Medium, part: np.ndarray, k: int, eps: float,
             return out
         rec.count("engine/vcycles_rejected")
         return part
+
+
+def combine(medium: Medium, pa: np.ndarray, pb: np.ndarray, k: int,
+            eps: float, seed: int) -> np.ndarray:
+    """The KaFFPaE combine operator (paper §2.2), medium-generic.
+
+    ``pb`` may be *any* domain-specific clustering/partition — only ``pa``
+    must be a feasible k-partition.  Both parents' cuts are protected during
+    re-coarsening, the better valid parent seeds the coarsest level, and
+    refinement (which never worsens) assembles good parts of both.
+    """
+    rec = recorder_of(medium)
+    pa = np.asarray(pa, dtype=np.int64)
+    pb = np.asarray(pb, dtype=np.int64)
+    with rec.span("combine", n=medium.n, k=k):
+        if pb.max() < k and medium.objective(pb) < medium.objective(pa):
+            pa, pb = pb, pa          # seed from the better valid parent
+        levels = build_hierarchy(medium, k, seed, protect=[pa, pb])
+        coarsest = levels[-1]
+        part_c = coarsest.protect[0] if coarsest.protect is not None else pa
+        part_c = coarsest.medium.refine(part_c, k, eps, seed)
+        rec.count("engine/combines")
+        return uncoarsen(levels, part_c, k, eps, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -212,13 +212,15 @@ class SeparatorMedium(ML.ViewCache):
         return self.polish(cand, 2, eps, seed)
 
     def refine_batch(self, parts: Sequence[np.ndarray], k: int, eps: float,
-                     seed: int) -> List[np.ndarray]:
+                     seed: int, seeds: Optional[Sequence[int]] = None
+                     ) -> List[np.ndarray]:
         coo, ell, vw_nbr = self.views
         return refine_separator_batch(self.g, list(parts), eps,
                                       rounds=self.cfg.refine_rounds,
                                       seed=seed, coo=coo, ell=ell,
                                       vw_nbr=vw_nbr,
-                                      use_kernel=self.use_kernel)
+                                      use_kernel=self.use_kernel,
+                                      seeds=seeds)
 
     def bucket_key(self):
         """Shape-bucket identity for the ND wave: media agreeing on this
@@ -360,3 +362,41 @@ def nodesep_labels_wave(graphs: Sequence[Graph], eps: float = 0.20,
             part = ML.vcycle(m, part, 2, eps, seeds[i] + 7919 * cyc)
         results[i] = part
     return results
+
+
+def memetic_nodesep_labels(g: Graph, eps: float = 0.20, preset: str = "eco",
+                           seed: int = 0, n_islands: int = 2,
+                           population: int = 2, time_limit: float = 5.0,
+                           generations: Optional[int] = None,
+                           migrate: bool = True, mesh=None, report=None,
+                           device=None) -> np.ndarray:
+    """Memetic separator mode: the island driver over `SeparatorMedium` on
+    ``device`` (None = CUDA; raises without a card unless
+    ``device="cpu"``) — the engine's protected-coarsening combine keeps
+    both parents' 3-label states representable, so offspring separators
+    are never heavier than the seeding parent.  ``mesh`` must be None."""
+    from repro_torch.core import memetic as MEM
+    MEM.validate_memetic_params(n_islands, population, time_limit,
+                                generations)
+    dev = resolve_device(device)
+    if g.n == 0:
+        return np.zeros(0, dtype=np.int64)
+    medium = SeparatorMedium(g, PRESETS[preset], recorder=report, device=dev)
+    cfg = MEM.MemeticConfig(n_islands=n_islands, population=population,
+                            time_limit=time_limit, generations=generations,
+                            migrate=migrate)
+    state = MEM.evolve_islands(medium, 2, eps, cfg, seed, mesh=mesh)
+    return state.best_part()
+
+
+def memetic_node_separator(g: Graph, eps: float = 0.20, preset: str = "eco",
+                           seed: int = 0, n_islands: int = 2,
+                           population: int = 2, time_limit: float = 5.0,
+                           generations: Optional[int] = None,
+                           migrate: bool = True, mesh=None, report=None,
+                           device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Memetic ``node_separator`` (2-way): (separator_ids, part2)."""
+    return split_labels(memetic_nodesep_labels(
+        g, eps, preset, seed, n_islands=n_islands, population=population,
+        time_limit=time_limit, generations=generations, migrate=migrate,
+        mesh=mesh, report=report, device=device))

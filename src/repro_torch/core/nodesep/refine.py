@@ -311,14 +311,16 @@ def refine_separator_batch(g: Graph, cands: List[np.ndarray],
                            ell: Optional[EllGraph] = None,
                            vw_nbr: Optional[torch.Tensor] = None,
                            use_kernel: Optional[bool] = None,
+                           seeds: Optional[Sequence[int]] = None,
                            device=None) -> List[np.ndarray]:
     """Refine several 3-label candidates in one batched device call; row i
-    draws from ``row_seed(seed, i)``."""
+    draws from ``seeds[i]``, by default ``row_seed(seed, i)``."""
     if g.n == 0 or not cands:
         return [np.asarray(c, dtype=np.int64) for c in cands]
     coo, ell = R._views(g, coo, ell, use_kernel, device)
     force = np.asarray([not separator_is_feasible(g, c, eps) for c in cands])
-    seeds = [R.row_seed(seed, i) for i in range(len(cands))]
+    if seeds is None:
+        seeds = [R.row_seed(seed, i) for i in range(len(cands))]
     outs = _run_sep_scan_batch(coo, separator_caps(g, eps),
                                _pad_labels(cands, g.n, coo.n_pad), seeds,
                                force, rounds, ell, vw_nbr)

@@ -1,8 +1,9 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
 tool import neither jax nor the JAX package `repro`, so the port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
-separator and ordering, a reduced zamba2 forward and one served request
-run with both blocked."""
+separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
+the memetic separator), process mapping and the ILP improvement, a
+reduced zamba2 forward and one served request run with both blocked."""
 import ast
 import os
 import pathlib
@@ -29,6 +30,12 @@ def test_no_jax_or_reference_imports_in_source():
     assert len(files) > 25
     assert PORT / "core" / "hypergraph" / "refine.py" in files
     assert PORT / "core" / "nodesep" / "refine.py" in files
+    for new in (("core", "memetic", "driver.py"),
+                ("core", "memetic", "migrate.py"),
+                ("core", "memetic", "state.py"), ("core", "evolve.py"),
+                ("core", "kabape.py"), ("core", "mapping.py"),
+                ("core", "ilp.py"), ("launch", "topology.py")):
+        assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, (f, bad)
@@ -62,6 +69,36 @@ def test_port_runs_with_jax_and_reference_blocked():
         inv = interface.reduced_nd(g.n, g.xadj, g.adjncy, seed=1,
                                    device="cpu")
         assert sorted(inv) == list(range(g.n))
+        ecut, epart = interface.kaffpaE(g.n, None, g.xadj, None, g.adjncy,
+                                        2, 0.03, seed=1, n_islands=2,
+                                        population=2, generations=1,
+                                        device="cpu")
+        assert 0 < ecut <= cut
+        from repro_torch.core.kabape import kabapeE
+        from repro_torch.core.partition import is_feasible
+        assert is_feasible(g, kabapeE(g, 4, 0.0, n_islands=1, population=2,
+                                      generations=1, seed=1, device="cpu"),
+                           4, 0.0)
+        ekm1, _ = interface.kahyparE(hg.n, hg.m, None, None, hg.eptr,
+                                     hg.eind, 2, 0.05, seed=1,
+                                     generations=1, device="cpu")
+        assert 0 < ekm1 <= km1
+        msep, _ = interface.node_separator(g.n, None, g.xadj, None,
+                                           g.adjncy, 2, 0.2, seed=1,
+                                           memetic=True, time_limit=0,
+                                           device="cpu")
+        assert 0 < msep <= nsep
+        pcut, qap, final = interface.process_mapping(
+            g.n, None, g.xadj, None, g.adjncy, [2, 2], [1, 10], 2, 0.03,
+            seed=1, device="cpu")
+        assert pcut > 0 and qap >= 0 and sorted(set(final)) == [0, 1, 2, 3]
+        from repro_torch.core.ilp import ilp_improve
+        from repro_torch.core.partition import edge_cut
+        assert edge_cut(g, ilp_improve(g, final, 4, timeout=5)) <= pcut
+        from repro_torch.launch import topology
+        assert topology.choose_axis_assignment(
+            {"data": 1.0e6}, {"data": 4}, hierarchy=(2, 2),
+            distances=(1, 10), device="cpu")["qap"] >= 0
         import torch
         from repro_torch.configs.base import get_config
         from repro_torch.models import transformer as T

@@ -366,7 +366,9 @@ def _c_api(g):
 def test_interface_node_separator():
     """nparts=2 multilevel (the default) and post-hoc, nparts=3 pairwise:
     each output is a separator of a partition that kaffpa or the engine
-    found; the multilevel one within the band of the reference's entry."""
+    found; the multilevel one within the band of the reference's entry.
+    ``memetic=True`` runs the island driver: with ``time_limit=0`` the
+    initial population only, whose first member is the multilevel run."""
     g = tgen.grid2d(16, 16)
     nums = {}
     for kw in ({}, {"multilevel": False}, {"nparts": 3}):
@@ -382,8 +384,10 @@ def test_interface_node_separator():
     ref_num, _ = rif.node_separator(*_c_api(rgen.grid2d(16, 16)), 2, 0.2,
                                     seed=1)
     assert nums[(2, True)] <= BAND * ref_num, (nums, ref_num)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tif.node_separator(*_c_api(g), 2, 0.2, memetic=True, device="cpu")
+    num, sep = tif.node_separator(*_c_api(g), 2, 0.2, seed=1, memetic=True,
+                                  time_limit=0, device="cpu")
+    assert num == len(sep) > 0 and len(np.unique(sep)) == num
+    assert num <= nums[(2, True)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tif.node_separator(*_c_api(g), 2, 0.2)
