@@ -9,9 +9,12 @@ end to end at a 131k-vertex power-law hypergraph, zamba2-2.7B at full
 width (a 2048-token forward and a served request stream), and the node
 separator at the 1M-vertex mesh with a nested-dissection ordering and an
 edge partition beside it, then the memetic programs (kaffpaE at a
-262k-vertex mesh, KaBaPE, kahyparE, the memetic separator) and process
-mapping with the ILP improvement, and prints what it measured.  Any
-failure exits non-zero before the result line.  Phases:
+262k-vertex mesh, KaBaPE, kahyparE, the memetic separator), process
+mapping with the ILP improvement, and the distributed programs (parhip,
+parhyp, the distributed edge partition, the island ring) on a world of
+one, through an NCCL process group where a mesh is asked for, and prints
+what it measured.  Any failure exits non-zero before the result line.
+Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
     kernels/csrc/pin_count.cu and kernels/csrc/ssd_scan.cu for sm_90a (one
@@ -152,13 +155,60 @@ failure exits non-zero before the result line.  Phases:
     grid2d(64, 64) at k=4 from a kaffpa partition (timeout 5 s): never
     worse.
 
+29. ``parhip.parhip`` fastmesh on grid2d(1024, 1024), k=16, ε=0.03,
+    seed 1, ``mesh=None`` (a world of one on the card), lp_affinity's
+    count zeroed just before and read just after: feasible, at least one
+    distributed round (``parhip/dist_rounds``), lp_affinity launched
+    (the tournament; the force-balance repairs); the cut beside phase
+    3's, the wall and ``parhip/repairs``.  The first lp_affinity call of
+    each distinct shape keeps a copy of its inputs; after the count is
+    read, each is held against ``ref.affinity_ref`` bit for bit (the
+    coarsest level's ELL with the tournament's rows and k, and whatever
+    else the path launched).
+30. parhip ultrafastsocial on barabasi_albert(65536, 4), k=8: feasible;
+    cut, wall, launches; lp_affinity held at the path's shapes as in 29.
+31. The collectives on the card: an NCCL process group of one rank
+    (``dist.HashStore``, no network) as a ``core.mesh.Mesh``.  parhip on
+    grid2d(256, 256) k=4 through it gives ``mesh=None``'s partition,
+    ``parhyp_refine`` on rmat_hypergraph(12) k=4 through its ``nets``
+    view gives ``mesh=None``'s, and ``ring_roll`` of an (8, 65536) int32
+    matrix through it equals ``np.roll`` at shifts -1..8; the counts of
+    all-reduce, all-gather and point-to-point calls are logged.
+32. ``interface.parhyp`` fast km1 on rmat_hypergraph(17, seed=1), k=8
+    (the device-resident V-cycle: n > ``_DEVICE_MIN_N``), pin_count's
+    count zeroed just before and read just after: feasible, at least 2
+    device levels, pin_count's CSR entry launched (the per-shard Φ of
+    every distributed round), ``to_ell_h`` called 0 times; km1 beside
+    phase 8's, wall, peak memory and the spans.  Then every pin_count
+    call of the path (one per distinct shape, its own inputs: the
+    per-shard Φ at each device level, the coarsest level's kahypar)
+    against ``ref.pin_count_csr_ref``, max |err| 0, and lp_affinity's
+    calls, if any, as in 29.  (rmat_hypergraph(20)
+    took 45 s on an H100 80GB HBM3, 700.00 W: ``tools/parhyp_scale.py``
+    measures it outside this script.)
+33. parhyp fast km1 and cut on rmat_hypergraph(14, seed=2), k=4, on the
+    kernel path and with ``use_kernel=False``: identical partitions, no
+    launch on the plain path.  Then the shard's Φ at phase 32's level-0
+    shape (its own partition, B = 1) by ``ops.pin_count_csr`` against
+    the scatter and ``ref.pin_count_csr_ref``, max |err| 0, and timed as
+    phase 11 beside its bound, plain version and the scatter; and on
+    each coarse level of phase 32's device hierarchy (random labels),
+    where merged duplicates stay inside their net's range as mask-0
+    pins, the CSR route against the scatter, max |err| 0.
+34. ``edgepart.distributed_edge_partition`` fastmesh k=4 on grid2d(256,
+    256): every edge in a block of [0, 4), lp_affinity launched,
+    replication beside phase 22's; lp_affinity held at the path's shapes
+    as in 29.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import subprocess
@@ -427,9 +477,9 @@ def run_kahypar(torch, hg, k, mode, objective, seed, dev, use_kernel=None):
     return obj, part, wall, launches, rec
 
 
-def kahypar_phases(torch, np, dev, card) -> dict:
+def kahypar_phases(torch, np, dev, card) -> tuple:
     """Phases 7-11; returns the pin_count row of the kernels line (the
-    CSR entry, the main path's call)."""
+    CSR entry, the main path's call) and the main path's km1."""
     from repro_torch.core import interface
     from repro_torch.core import hypergraph as H
     from repro_torch.core.hypergraph import container as HC
@@ -650,7 +700,7 @@ def kahypar_phases(torch, np, dev, card) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
-            "shape": [1, hc.e_pad, p, k_pad, hc.n_pad]}
+            "shape": [1, hc.e_pad, p, k_pad, hc.n_pad]}, km1
 
 
 def ssd_sweep_inputs(np, bh, l, p, n):
@@ -1062,8 +1112,9 @@ def run_nodesep(torch, np, g, seed, dev, use_kernel=None):
                            for k, v in names.items()}, rec)
 
 
-def nodesep_phases(torch, np, dev, card) -> dict:
-    """Phases 17-22; returns the sep_affinity row of the kernels line."""
+def nodesep_phases(torch, np, dev, card) -> tuple:
+    """Phases 17-22; returns the sep_affinity row of the kernels line and
+    phase 22's replication."""
     from repro_torch import obs
     from repro_torch.core import interface
     from repro_torch.core.csr import to_coo, to_ell
@@ -1264,7 +1315,7 @@ def nodesep_phases(torch, np, dev, card) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
-            "shape": [1, n_pad, dmax, 3]}
+            "shape": [1, n_pad, dmax, 3]}, metrics["replication"]
 
 
 def memetic_counters(rec) -> dict:
@@ -1291,6 +1342,48 @@ def counting(module, name, ticks):
 
     setattr(module, name, wrapper)
     return real
+
+
+@contextlib.contextmanager
+def capturing(torch, module, name):
+    """Replace the kernel wrapper ``module.name`` while the block runs by
+    one that keeps a copy of its inputs (passed by position, as
+    ``kernels/ops.py`` passes them) at the first call of each distinct
+    shape; yields those calls by shape.  The wrapper's own launch
+    count is untouched, so the path's count stays its own."""
+    real = getattr(module, name)
+    calls = {}
+
+    def wrapper(*args):
+        out = real(*args)
+        key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                    for a in args)
+        if key not in calls:
+            calls[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def replay_lp(torch, calls, what) -> float:
+    """lp_affinity against affinity_ref on the inputs a path gave it, one
+    call per distinct shape: bit for bit where the weights are integers,
+    else within 1e-5.  Returns max |diff|."""
+    err = 0.0
+    for nbr, wgt, labels, k in calls.values():
+        integer = bool(torch.equal(wgt, wgt.round()))
+        err = max(err, compare(torch, nbr, wgt, labels, k, integer))
+    shapes = [[*lab.shape, *nbr.shape, k]
+              for nbr, _, lab, k in calls.values()]
+    log(f"{what}: lp_affinity == affinity_ref on the path's own inputs at "
+        f"its {len(calls)} shapes [B, n_pad, n_pad, dmax, k] {shapes} "
+        f"(max |err| {err:g})")
+    return err
 
 
 def label_rows(torch, np, part, n_pad, rows, k, dev):
@@ -1627,6 +1720,293 @@ def memetic_phases(torch, np, dev, card) -> dict:
     out["errors"] = errs
     return out
 
+def distributed_phases(torch, np, dev, card, main_cut, kahypar_km1,
+                       ep_replication) -> dict:
+    """Phases 29-34; returns the launches of each path by kernel, the
+    per-shard pin_count row (time, bound, plain and library times) and,
+    under "errors", each kernel's largest difference from its plain
+    version on these paths.  Comparisons and timings run after each
+    path's counts are read."""
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.core import interface, memetic as MEM
+    from repro_torch.core.edgepart import distributed_edge_partition
+    from repro_torch.core.hypergraph import container as HC
+    from repro_torch.core import hypergraph as H
+    from repro_torch.core.hypergraph import dist as HD
+    from repro_torch.core.hypergraph import metrics as M
+    from repro_torch.core.hypergraph.initial import random_partition
+    from repro_torch.core.hypergraph.refine import k_bucket
+    from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, PPERMUTE, Mesh
+    from repro_torch.core.parhip import parhip
+    from repro_torch.core.partition import (edge_cut, edge_partition_metrics,
+                                            is_feasible)
+    from repro_torch.io.generators import (barabasi_albert, grid2d,
+                                           rmat_hypergraph)
+    from repro_torch.kernels import lp_affinity, ops, pin_affinity, ref
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+    out, errs = {}, {}
+
+    def zero(*names):
+        torch.cuda.synchronize()
+        for name in names:
+            obs.metrics.reset(name)
+        return time.perf_counter()
+
+    def read(t0, name=LAUNCHES):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, int(obs.metrics.get(name))
+
+    def parhip_run(g, k, preconfiguration, what):
+        rec = obs.Recorder("parhip")
+        with capturing(torch, lp_affinity, "affinity_cuda") as calls:
+            t0 = zero(LAUNCHES)
+            part = parhip(g, k, 0.03, preconfiguration, seed=1, report=rec,
+                          device=dev)
+            wall, launches = read(t0)
+        ctr = rec.counters()
+        cut, feas = edge_cut(g, part), is_feasible(g, part, k, 0.03)
+        log(f"{what}: cut={cut} feasible={feas} wall_s={wall:.3f} "
+            f"lp_affinity launches={launches} parhip/dist_rounds="
+            f"{int(ctr.get('parhip/dist_rounds', 0))} parhip/repairs="
+            f"{int(ctr.get('parhip/repairs', 0))} levels="
+            f"{int(ctr.get('engine/levels', 0))} [{card}]")
+        check(feas, f"{what}: partition infeasible")
+        check(ctr.get("parhip/dist_rounds", 0) > 0,
+              f"{what}: no distributed round ran")
+        check(launches > 0, f"{what}: lp_affinity never launched")
+        errs["lp_affinity"] = max(errs.get("lp_affinity", 0.0),
+                                  replay_lp(torch, calls, what))
+        return part, launches
+
+    # -- 29. parhip, the world of one on the card --------------------------
+    g = grid2d(1024, 1024)
+    _, out["parhip"] = parhip_run(
+        g, 16, "fastmesh", f"parhip fastmesh grid2d(1024,1024) k=16 "
+        f"(kaffpa ECO's cut in phase 3: {main_cut})")
+
+    # -- 30. parhip's social preset ----------------------------------------
+    _, out["parhip_social"] = parhip_run(
+        barabasi_albert(65536, 4, seed=1), 8, "ultrafastsocial",
+        "parhip ultrafastsocial barabasi_albert(65536,4) k=8")
+
+    # -- 31. the collectives on the card: an NCCL world of one -------------
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = Mesh.world(("nodes",), device=dev)
+        counts = (ALL_REDUCE, ALL_GATHER, PPERMUTE)
+        zero(*counts)
+        g2 = grid2d(256, 256)
+        p_mesh = parhip(g2, 4, 0.03, "fastmesh", seed=1, mesh=mesh)
+        p_none = parhip(g2, 4, 0.03, "fastmesh", seed=1, device=dev)
+        check(np.array_equal(p_mesh, p_none),
+              "parhip on the NCCL mesh differs from mesh=None")
+        hg12 = rmat_hypergraph(12, seed=3)
+        part0 = random_partition(hg12, 4, seed=1)
+        r_mesh = HD.parhyp_refine(hg12, part0, 4, 0.03,
+                                  mesh.view((1,), ("nets",)), rounds=8,
+                                  seed=2)
+        r_none = HD.parhyp_refine(hg12, part0, 4, 0.03, rounds=8, seed=2,
+                                  device=dev)
+        check(np.array_equal(r_mesh, r_none),
+              "parhyp_refine on the NCCL mesh differs from mesh=None")
+        parts = np.random.default_rng(31).integers(
+            0, 16, (8, 65536)).astype(np.int32)
+        for shift in range(-1, 9):
+            check(np.array_equal(MEM.ring_roll(parts, shift, mesh),
+                                 np.roll(parts, shift, axis=0)),
+                  f"ring_roll on the NCCL mesh != np.roll at shift {shift}")
+        torch.cuda.synchronize()
+        calls = {c: int(obs.metrics.get(c)) for c in counts}
+        log(f"NCCL world of one ({dist.get_backend()}): parhip fastmesh "
+            f"grid2d(256,256) k=4 == mesh=None (cut "
+            f"{edge_cut(g2, p_mesh)}); parhyp_refine rmat_hypergraph(12) "
+            f"k=4 == mesh=None (km1 {M.connectivity(hg12, r_mesh)}); "
+            f"ring_roll (8, 65536) int32 == np.roll at shifts -1..8; "
+            f"collective calls {json.dumps(calls)}")
+        check(calls[ALL_REDUCE] > 0 and calls[ALL_GATHER] > 0,
+              "the NCCL mesh issued no collective")
+    finally:
+        dist.destroy_process_group()
+
+    # -- 32. interface.parhyp: the device-resident V-cycle -----------------
+    hg = rmat_hypergraph(17, seed=1)
+    ell_builds = []
+    real_to_ell_h = HC.to_ell_h
+
+    def counted_to_ell_h(*args, **kwargs):
+        ell_builds.append(1)
+        return real_to_ell_h(*args, **kwargs)
+
+    HC.to_ell_h = H.to_ell_h = counted_to_ell_h
+    rec = obs.Recorder("parhyp")
+    try:
+        with capturing(torch, pin_affinity, "pin_count_csr_cuda") as pins, \
+                capturing(torch, lp_affinity, "affinity_cuda") as lps:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = zero(pin_affinity.LAUNCHES, LAUNCHES)
+            km1, part = interface.parhyp(hg.n, hg.m, None, None, hg.eptr,
+                                         hg.eind, 8, 0.03, seed=1,
+                                         preconfiguration="fast",
+                                         report=rec, device=dev)
+            wall, launches = read(t0, pin_affinity.LAUNCHES)
+            lp = int(obs.metrics.get(LAUNCHES))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        HC.to_ell_h = H.to_ell_h = real_to_ell_h
+    ctr = rec.counters()
+    feas = M.is_feasible(hg, part, 8, 0.03)
+    levels = int(ctr.get("parhyp/device_levels", 0))
+    spans = rounded(span_seconds(rec, ("parhyp_coarsen", "parhyp_initial",
+                                       "parhyp_level")))
+    log(f"parhyp fast km1 rmat_hypergraph(17, seed=1) k=8: km1={km1} "
+        f"(kahypar ECO in phase 8: {kahypar_km1}) feasible={feas} "
+        f"wall_s={wall:.3f} peak_GiB={peak:.3f} device_levels={levels} "
+        f"dist_rounds={int(ctr.get('parhyp/dist_rounds', 0))} repairs="
+        f"{int(ctr.get('parhyp/repairs', 0))} pin_count launches="
+        f"{launches} lp_affinity launches={lp} to_ell_h calls="
+        f"{len(ell_builds)} spans_s={spans} [{card}]")
+    check(feas, "parhyp partition infeasible")
+    check(levels >= 2, "parhyp did not coarsen on the device")
+    check(launches > 0, "parhyp never launched pin_count's CSR entry")
+    check(not ell_builds, "parhyp built an ELL-H view")
+    out["parhyp"] = launches
+    # every pin_count call of the path, one per distinct shape, on its own
+    # inputs: the per-shard Φ of each device level and the coarsest
+    # level's kahypar; counts are integer sums, so bit for bit
+    errs["pin_count"] = 0.0
+    for eptr, pv, mask, labels, k in pins.values():
+        got = ops.pin_count_csr(eptr, pv, mask, labels, k)
+        want = ref.pin_count_csr_ref(eptr, pv, mask, labels, k)
+        torch.cuda.synchronize()
+        errs["pin_count"] = max(errs["pin_count"],
+                                float((got - want).abs().max()))
+    shapes = [[*lab.shape, e.numel() - 1, p.numel(), k]
+              for e, p, _, lab, k in pins.values()]
+    log(f"parhyp: pin_count_csr == pin_count_csr_ref on the path's own "
+        f"inputs at its {len(pins)} shapes [B, n_pad, e_rows, p, k] "
+        f"{shapes} (max |err| {errs['pin_count']:g})")
+    check(errs["pin_count"] == 0.0, f"pin_count_csr differs from its plain "
+          f"version on parhyp's inputs: {errs['pin_count']}")
+    if lps:
+        errs["lp_affinity"] = max(errs["lp_affinity"],
+                                  replay_lp(torch, lps, "parhyp"))
+
+    # -- 33. kernel path against plain path; the per-shard Φ ---------------
+    hg14 = rmat_hypergraph(14, seed=2)
+    for objective in ("km1", "cut"):
+        t0 = zero(pin_affinity.LAUNCHES)
+        pk = HD.parhyp(hg14, 4, 0.03, "fast", seed=1, objective=objective,
+                       device=dev)
+        wall_k, launches_k = read(t0, pin_affinity.LAUNCHES)
+        t0 = zero(pin_affinity.LAUNCHES)
+        pp = HD.parhyp(hg14, 4, 0.03, "fast", seed=1, objective=objective,
+                       use_kernel=False, device=dev)
+        wall_p, launches_p = read(t0, pin_affinity.LAUNCHES)
+        score = M.connectivity if objective == "km1" else M.cut_net
+        log(f"parhyp fast {objective} rmat_hypergraph(14, seed=2) k=4: "
+            f"{score(hg14, pk)} kernel path ({wall_k:.3f} s, {launches_k} "
+            f"launches), {score(hg14, pp)} plain path ({wall_p:.3f} s, "
+            f"{launches_p} launches) [{card}]")
+        check(np.array_equal(pk, pp), f"parhyp {objective}: kernel path "
+              f"and plain path partitions differ")
+        check(launches_k > 0 and launches_p == 0,
+              f"parhyp {objective}: launches {launches_k} / {launches_p}")
+    sh = HD.shard_hypergraph(hg, 1)
+    lay = HD._layout(Mesh.local(("nets",), dev), sh)
+    L = HD._level0(lay, sh, dev)
+    k_pad = k_bucket(8)
+    labels = torch.zeros(1, sh.n_pad, dtype=torch.int32, device=dev)
+    labels[0, :hg.n] = torch.from_numpy(part.astype(np.int32)).to(dev)
+    got = ops.pin_count_csr(L.eptr, L.pv, L.mask, labels, k_pad)[0]
+    scatter = HD._pin_counts(lay, L, labels[0], k_pad, use_kernel=False)
+    plain = ref.pin_count_csr_ref(L.eptr, L.pv, L.mask, labels, k_pad)[0]
+    torch.cuda.synchronize()
+    level0_err = max(float((got - scatter).abs().max()),
+                     float((got - plain).abs().max()))
+    errs["pin_count"] = max(errs["pin_count"], level0_err)
+    check(level0_err == 0.0, f"the shard's Φ by pin_count_csr differs from "
+          f"the scatter: {level0_err}")
+    # the coarse device levels, where a contraction's merged duplicates
+    # stay inside their net's range as mask-0 pins: the CSR route by each
+    # level's eptr against the scatter by its pin → net ids
+    cfg = HD.PRESETS[HD.PARHYP_PRESETS["fast"]["preset"]]
+    dlevels, _ = HD._device_hierarchy(sh, lay.mesh, cfg, 8, 1, obs.NULL)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    coarse = []
+    for li, Lc in enumerate(dlevels[1:], 1):
+        lab = torch.randint(0, 8, (sh.n_pad,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got_c = ops.pin_count_csr(Lc.eptr, Lc.pv, Lc.mask, lab[None],
+                                  k_pad)[0]
+        want_c = HD._pin_counts(lay, Lc, lab, k_pad, use_kernel=False)
+        live_c = int(Lc.eptr[-1])
+        dead_c = int((Lc.mask[:live_c] == 0).sum())
+        err_c = float((got_c - want_c).abs().max())
+        coarse.append([li, live_c, dead_c, err_c])
+        errs["pin_count"] = max(errs["pin_count"], err_c)
+    log(f"the shard's Φ on rmat_hypergraph(17)'s coarse device levels "
+        f"[level, pins in nets, mask-0 pins among them, max |err|]: "
+        f"{coarse}")
+    check(coarse and all(c[3] == 0.0 for c in coarse),
+          f"the shard's Φ by pin_count_csr differs from the scatter at a "
+          f"coarse level: {coarse}")
+    check(any(c[2] > 0 for c in coarse),
+          "no coarse level holds a mask-0 pin inside a net's range")
+
+    def kernel():
+        return pin_affinity.pin_count_csr_cuda(L.eptr, L.pv, L.mask, labels,
+                                               k_pad)
+
+    ms = launch_ms(torch, kernel, {"pin_count_kernel": 1},
+                   calls=20)["pin_count_kernel"]
+    call_ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: ref.pin_count_csr_ref(
+        L.eptr, L.pv, L.mask, labels, k_pad), iters=5)
+    library_ms = cuda_ms(torch, lambda: HD._pin_counts(
+        lay, L, labels[0], k_pad, use_kernel=False), iters=5)
+    # as phase 11: the real pins' masks, the ids of live pins, the
+    # offsets, the labels and the (e_rows, k) output
+    p = int(L.eptr[-1])
+    live = int((L.mask[:p] != 0).sum())
+    nbytes = (p * 4 + live * 4 + L.eptr.numel() * 4 + labels.numel() * 4
+              + lay.e_rows * k_pad * 4)
+    bms, by = bound_ms(nbytes, live)
+    out["per_shard"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bms,
+                            bound_by=by,
+                            shape=[1, lay.e_rows, p, k_pad, sh.n_pad])
+    log(f"pin_count_csr on the shard's pin list (S=1, rmat_hypergraph(17) "
+        f"level 0) B=1 e_rows={lay.e_rows} pins={p} k={k_pad}: == the "
+        f"scatter and the plain version (max |err| {errs['pin_count']:g}); "
+        f"kernel {ms:.4f} ms per launch (torch.profiler; {call_ms:.4f} ms "
+        f"per wrapper call), plain {plain_ms:.4f} ms, scatter (index_add_) "
+        f"{library_ms:.4f} ms, bound {bms:.4f} ms ({nbytes} bytes at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+
+    # -- 34. the distributed edge partition --------------------------------
+    gep = grid2d(EP_GRID, EP_GRID)
+    with capturing(torch, lp_affinity, "affinity_cuda") as calls:
+        t0 = zero(LAUNCHES)
+        epart = distributed_edge_partition(gep, 4, seed=1, device=dev)
+        wall, out["distributed_edge_partition"] = read(t0)
+    metrics = edge_partition_metrics(gep, epart, 4)
+    log(f"distributed_edge_partition fastmesh k=4 grid2d({EP_GRID},"
+        f"{EP_GRID}): {json.dumps(metrics)} (edge_partition ECO in phase "
+        f"22: replication {ep_replication:.4f}) wall_s={wall:.3f} "
+        f"lp_affinity launches={out['distributed_edge_partition']} "
+        f"[{card}]")
+    check(epart.shape == (gep.m,) and int(epart.min()) >= 0
+          and int(epart.max()) < 4, "an edge has no block in [0, 4)")
+    check(out["distributed_edge_partition"] > 0,
+          "distributed_edge_partition never launched lp_affinity")
+    errs["lp_affinity"] = max(errs["lp_affinity"], replay_lp(
+        torch, calls, "distributed_edge_partition"))
+    out["errors"] = errs
+    return out
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -1772,19 +2152,25 @@ def main() -> int:
             f"at {PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
 
     main = rows_out[1]    # level-0 refinement launches one row
-    pin_row = kahypar_phases(torch, np, dev, card)
+    pin_row, kahypar_km1 = kahypar_phases(torch, np, dev, card)
     ssd_rows = zamba2_phases(torch, np, dev, card)
-    sep_row = nodesep_phases(torch, np, dev, card)
+    sep_row, ep_replication = nodesep_phases(torch, np, dev, card)
     paths = memetic_phases(torch, np, dev, card)
+    dpaths = distributed_phases(torch, np, dev, card, cut, kahypar_km1,
+                                ep_replication)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity
-    pin_row["launches_by_path"] = {"kahyparE": paths["kahyparE"]}
+    pin_row["launches_by_path"] = {"kahyparE": paths["kahyparE"],
+                                   "parhyp": dpaths["parhyp"]}
+    pin_row["per_shard"] = dpaths["per_shard"]
     sep_row["launches_by_path"] = {
         "memetic_separator": paths["memetic_separator"]}
     errs = paths["errors"]
-    max_err = max(max_err, errs["lp_affinity"])
-    pin_row["max_abs_err"] = max(pin_row["max_abs_err"], errs["pin_count"])
+    derrs = dpaths["errors"]
+    max_err = max(max_err, errs["lp_affinity"], derrs["lp_affinity"])
+    pin_row["max_abs_err"] = max(pin_row["max_abs_err"], errs["pin_count"],
+                                 derrs["pin_count"])
     sep_row["max_abs_err"] = max(sep_row["max_abs_err"],
                                  errs["sep_affinity"])
     log(json.dumps({"kernels": [{
@@ -1801,7 +2187,11 @@ def main() -> int:
             "kabape_gain_matrix": paths["kabape_gain_matrix"],
             "kahyparE": paths["kahyparE_lp_affinity"],
             "memetic_separator": paths["memetic_separator_lp_affinity"],
-            "process_mapping": paths["process_mapping"]}},
+            "process_mapping": paths["process_mapping"],
+            "parhip": dpaths["parhip"],
+            "parhip_social": dpaths["parhip_social"],
+            "distributed_edge_partition": dpaths[
+                "distributed_edge_partition"]}},
         pin_row, *ssd_rows, sep_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ unit-weight edge between the two corresponding split vertices.  A node
 partition of the SPAC graph induces an edge partition of the original graph;
 the heavy auxiliary cycles keep a vertex's split copies together, minimizing
 vertex replication.  The SPAC graph is partitioned by kaffpa's engine on a
-device (None = CUDA).
+device (None = CUDA), or by parhip on a `core.mesh.Mesh`
+(``distributed_edge_partition``).
 """
 from __future__ import annotations
 
@@ -95,6 +96,21 @@ def edge_partition(g: Graph, k: int, eps: float = 0.03,
                   time_limit=time_limit)
     # edge block: block of its first split vertex (splits almost always agree
     # thanks to the infinity cycles)
+    return part[esplit[:, 0]]
+
+
+def distributed_edge_partition(g: Graph, k: int, eps: float = 0.03,
+                               preconfiguration: str = "fastmesh",
+                               infinity: int = 1000, seed: int = 0,
+                               mesh=None, device=None) -> np.ndarray:
+    """The ``distributed_edge_partitioning`` program: ParHIP on the SPAC
+    graph (§4.6), on ``mesh`` or, without one, a world of one on
+    ``device`` (None = CUDA; raises without a card unless
+    ``device="cpu"``)."""
+    from repro_torch.core.parhip import parhip
+    spac, esplit = build_spac(g, infinity)
+    part = parhip(spac, k, eps, preconfiguration, seed=seed, mesh=mesh,
+                  device=device)
     return part[esplit[:, 0]]
 
 

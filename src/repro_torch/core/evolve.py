@@ -13,7 +13,8 @@ split by the parents' block signatures before contraction, which
 
 The island loop itself lives in the medium-generic memetic engine
 (core/memetic) — ``kaffpaE`` is the `GraphMedium` front: the MPI
-rumor-spreading exchange is the seeded migration ring, and the KaBaPE
+rumor-spreading exchange is the seeded migration ring (block exchanges
+between the ranks of an islands mesh), and the KaBaPE
 variant rides the same driver with the negative-cycle child polish and
 the balanced replacement rule.  One medium serves the whole evolution on
 its device, so every restart, combine, V-cycle and KaBaPE polish reuses
@@ -26,10 +27,11 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.core.csr import Graph, resolve_device
+from repro_torch.core.csr import Graph
 from repro_torch.core import kaffpa as K
 from repro_torch.core import memetic as MEM
 from repro_torch.core import multilevel as ML
+from repro_torch.core.mesh import device_of
 from repro_torch.core.partition import comm_volume, edge_cut
 from repro_torch.core.kabape import kabape_refine
 
@@ -81,12 +83,13 @@ def kaffpaE(g: Graph, k: int, eps: float = 0.03, preset: str = "fast",
     semantics); ``generations`` selects a deterministic generation count
     instead of the wall-clock budget.  With ``enable_kabape`` offspring get
     the KaBaPE negative-cycle polish at the strict balance constraint and
-    replacement evicts infeasible members first.  ``mesh`` must be None
-    (island meshes wait for ROADMAP.md queue 1 item 9).
+    replacement evicts infeasible members first.  ``mesh`` (a
+    `core.mesh.Mesh`) lays the islands out over its ranks for migration;
+    its device is the run's.
     """
     MEM.validate_memetic_params(n_islands, population, time_limit,
                                 generations)
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
     cfg = K.PRESETS[preset]
     if k <= 1:
         return np.zeros(g.n, dtype=np.int64)

@@ -4,7 +4,8 @@ The hypergraph sibling of the graph pipeline: dual-CSR `Hypergraph`
 container with padded ELL/COO torch views, LP-clustering coarsening,
 greedy hypergraph growing, size-constrained LP refinement (cut-net and
 connectivity objectives, the CUDA pin-count kernel on the hot path), the
-`kahypar` multilevel driver and its memetic sibling `kahyparE`.
+`kahypar` multilevel driver, its memetic sibling `kahyparE` and the
+distributed `parhyp` on a `core.mesh.Mesh`.
 """
 from repro_torch.core.hypergraph.container import (EllHypergraph, Hypergraph,
                                                    HypergraphFormatError,
@@ -17,6 +18,10 @@ from repro_torch.core.hypergraph.coarsen import (clique_expansion, contract,
 from repro_torch.core.hypergraph.driver import (
     HypergraphMedium, KahyparConfig, PRESETS, kahypar, kahyparE,
     multilevel_hypergraph_partition)
+from repro_torch.core.hypergraph.dist import (PARHYP_PRESETS,
+                                              ShardedHypergraph, parhyp,
+                                              parhyp_refine,
+                                              shard_hypergraph)
 from repro_torch.core.hypergraph.initial import (greedy_growing,
                                                  random_partition)
 from repro_torch.core.hypergraph.metrics import (balance, block_weights,
@@ -36,4 +41,6 @@ __all__ = [
     "refine_hypergraph",
     "HypergraphMedium", "KahyparConfig", "PRESETS", "kahypar", "kahyparE",
     "multilevel_hypergraph_partition",
+    "PARHYP_PRESETS", "ShardedHypergraph", "parhyp", "parhyp_refine",
+    "shard_hypergraph",
 ]

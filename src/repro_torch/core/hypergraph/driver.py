@@ -18,6 +18,7 @@ import numpy as np
 
 from repro_torch.core import multilevel as ML
 from repro_torch.core.csr import resolve_device
+from repro_torch.core.mesh import device_of
 from repro_torch.core.refine import default_use_kernel
 from repro_torch.core.hypergraph.container import Hypergraph, to_pincoo
 from repro_torch.core.hypergraph import coarsen as C
@@ -202,28 +203,45 @@ def kahyparE(hg: Hypergraph, k: int, eps: float = 0.03, preset: str = "eco",
              device=None) -> np.ndarray:
     """The ``kahyparE`` program: memetic multilevel hypergraph partitioning
     (the KaHyParE analogue of kaffpaE) on ``device`` (None = CUDA; raises
-    without a card unless ``device="cpu"``).
+    without a card unless ``device="cpu"``) or on ``mesh``'s.
 
     Rides the medium-generic island driver over `HypergraphMedium` for
-    either objective.  ``generations`` selects a deterministic generation
-    count instead of the ``time_limit`` wall-clock budget.  ``mesh`` must
-    be None (the driver raises on one): island meshes, and the
-    distributed parhyp polish of every child on a multi-device mesh, wait
-    for ROADMAP.md queue 1 item 9.
+    either objective.  ``mesh`` (a `core.mesh.Mesh`) lays the islands out
+    over its ranks for migration; on a mesh of several ranks the
+    per-island local search additionally polishes every child with the
+    distributed ``parhyp`` refinement over the same ranks read as a
+    ``("nets",)`` mesh (preset-matched round count, cached
+    `ShardedHypergraph`).  ``generations`` selects a deterministic
+    generation count instead of the ``time_limit`` wall-clock budget.
     """
     from repro_torch.core import memetic as MEM
     MEM.validate_memetic_params(n_islands, population, time_limit,
                                 generations)
     if objective not in ("km1", "cut"):
         raise ValueError(f"unknown objective {objective!r}")
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
     if k <= 1:
         return np.zeros(hg.n, dtype=np.int64)
     medium = HypergraphMedium(hg, PRESETS[preset], objective,
                               recorder=report, device=dev)
+    polish_fn = None
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.core.hypergraph import dist as D
+        nets_mesh = mesh.view((mesh.size,), ("nets",))
+        pre = "eco" if preset in ("eco", "strong") else "fast"
+        rounds = D.PARHYP_PRESETS[pre]["rounds"]
+        sh = D.shard_hypergraph(hg, mesh.size)
+
+        def polish_fn(part, pseed):
+            return D.parhyp_refine(hg, part, k, eps, nets_mesh,
+                                   rounds=rounds, seed=pseed,
+                                   objective=objective, sh=sh,
+                                   use_kernel=medium.use_kernel)
+
     cfg = MEM.MemeticConfig(n_islands=n_islands, population=population,
                             time_limit=time_limit, generations=generations,
                             migrate=migrate)
-    state = MEM.evolve_islands(medium, k, eps, cfg, seed, mesh=mesh,
+    state = MEM.evolve_islands(medium, k, eps, cfg, seed,
+                               polish_fn=polish_fn, mesh=mesh,
                                on_generation=on_generation)
     return state.best_part()

@@ -5,7 +5,9 @@ Functions take the CSR arrays (n, vwgt, xadj, adjcwgt, adjncy) exactly as the
 C API does (vwgt/adjcwgt may be None; the orderings take xadj/adjncy
 only), or for ``kahypar`` the hMETIS arrays (eptr, eind), and return the C
 API's output parameters as Python values.  ``device=None`` runs on CUDA
-and raises without a card; pass ``device="cpu"`` to run on the CPU.
+and raises without a card; pass ``device="cpu"`` to run on the CPU.  The
+distributed entries (``parhyp``, and ``kaffpaE``/``kahyparE`` with a
+``mesh``) run on the mesh's device.
 """
 from __future__ import annotations
 
@@ -73,8 +75,8 @@ def kaffpaE(n: int, vwgt, xadj, adjcwgt, adjncy, nparts: int,
     must be positive, ``time_limit`` finite and >= 0 — 0 keeps the paper's
     initial-population-only semantics); ``generations`` selects a
     deterministic generation count instead of the wall-clock budget.
-    ``mesh`` must be None (island meshes wait for ROADMAP.md queue 1
-    item 9).
+    ``mesh`` (a `core.mesh.Mesh`) lays the islands out over its ranks for
+    migration; every rank makes this call alike.
     """
     from repro_torch.core import evolve as E
     from repro_torch.core.partition import edge_cut
@@ -130,7 +132,9 @@ def kahyparE(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
     Same array convention as the ``kahypar`` entry; ``objective`` ∈
     {"km1", "cut"}.  The memetic knobs are validated up front;
     ``generations`` selects a deterministic generation count instead of
-    the ``time_limit`` wall-clock budget; ``mesh`` must be None.
+    the ``time_limit`` wall-clock budget; ``mesh`` (a `core.mesh.Mesh`)
+    lays the islands out over its ranks, and on several ranks every child
+    also gets the distributed parhyp polish.
     """
     from repro_torch.core import hypergraph as H
     hg = _hypergraph(n, vwgt, ewgt, eptr, eind)
@@ -140,6 +144,33 @@ def kahyparE(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
                       population=population, time_limit=time_limit,
                       generations=generations, mesh=mesh, report=report,
                       device=device)
+    score = H.connectivity if objective == "km1" else H.cut_net
+    return score(hg, part), part
+
+
+def parhyp(n: int, m: int, vwgt, ewgt, eptr, eind, nparts: int,
+           imbalance: float, suppress_output: bool = True, seed: int = 0,
+           preconfiguration: str = "fast", objective: str = "km1",
+           mesh=None, report=None, device=None):
+    """Distributed hypergraph partitioner call (the ``parhyp`` program)
+    → (objval, part).
+
+    Same array convention as the ``kahypar`` entry; ``preconfiguration``
+    ∈ {"ultrafast", "fast", "eco"} selects the engine preset and the
+    distributed-LP round count, ``mesh`` an optional `core.mesh.Mesh` —
+    1-D ``("nets",)`` or 2-D ``("nets", "verts")``, every rank making
+    this call alike — and without one the run is a world of one on
+    ``device``.  Above the gather-to-one-PE floor the whole V-cycle
+    (LP-clustering coarsening, contraction, refinement) stays on the
+    device; small inputs run the host-orchestrated multilevel with
+    distributed refinement.
+    """
+    from repro_torch.core import hypergraph as H
+    hg = _hypergraph(n, vwgt, ewgt, eptr, eind)
+    part = H.parhyp(hg, nparts, imbalance,
+                    preconfiguration=preconfiguration, seed=seed,
+                    mesh=mesh, objective=objective, report=report,
+                    device=device)
     score = H.connectivity if objective == "km1" else H.cut_net
     return score(hg, part), part
 

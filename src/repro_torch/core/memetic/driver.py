@@ -11,6 +11,11 @@ and each island replaces its worst member under the variant's
 replacement rule.  Migration is the seeded ring exchange of
 `migrate.ring_roll`.
 
+On a `core.mesh.Mesh` of several ranks every rank runs this whole loop
+with the same seeds (the islands' results are replicated) and only the
+migration exchanges blocks between ranks; under a wall-clock budget the
+ranks agree each generation on whether to go on, so they stop together.
+
 Determinism contract: every stochastic choice island i makes is drawn
 from its own RNG stream seeded by ``island_seed(seed, i)``, and every
 engine call it issues is seeded from the same stream of stamps — so with
@@ -31,7 +36,8 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from repro_torch.core import multilevel as ML
-from repro_torch.core.memetic.migrate import refuse_mesh, ring_roll
+from repro_torch.core.mesh import check_mesh
+from repro_torch.core.memetic.migrate import ring_roll
 from repro_torch.core.memetic.state import Individual, IslandState
 
 STRIDE_ISLAND = 1009
@@ -190,8 +196,9 @@ def evolve_islands(medium: ML.Medium, k: int, eps: float,
 
     ``fitness_fn(part)`` defaults to the medium's objective;
     ``polish_fn(part, seed)`` is the variant hook applied to every child
-    (the KaBaPE negative-cycle polish).  ``mesh`` must be None (island
-    meshes wait for ROADMAP.md queue 1 item 9).
+    (the KaBaPE negative-cycle polish, the distributed parhyp polish).
+    ``mesh`` (a `core.mesh.Mesh`) lays the islands out over its ranks for
+    the migration's block exchange.
     ``cfg.generations`` selects a deterministic generation count; with
     ``None`` the loop runs on the ``time_limit`` wall-clock budget
     (``time_limit == 0`` → initial populations only, paper semantics).
@@ -199,7 +206,7 @@ def evolve_islands(medium: ML.Medium, k: int, eps: float,
     """
     validate_memetic_params(cfg.n_islands, cfg.population, cfg.time_limit,
                             cfg.generations)
-    refuse_mesh(mesh)
+    check_mesh(mesh)
     if (not isinstance(cfg.migration_interval, numbers.Integral)
             or cfg.migration_interval < 1):
         raise ValueError(f"migration_interval must be a positive int, "
@@ -248,7 +255,8 @@ def evolve_islands(medium: ML.Medium, k: int, eps: float,
     def more(gen: int) -> bool:
         if cfg.generations is not None:
             return gen < cfg.generations
-        return time.monotonic() - t0 < cfg.time_limit
+        go_on = time.monotonic() - t0 < cfg.time_limit
+        return mesh.agree(go_on) if mesh is not None else go_on
 
     gen = 0
     while more(gen):

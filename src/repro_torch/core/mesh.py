@@ -1,0 +1,246 @@
+"""The device mesh of the distributed programs, on ``torch.distributed``.
+
+The port's counterparts of the JAX package's SPMD pieces:
+
+  * `Mesh` — ``jax.sharding.Mesh``: a shape and axis names (``("nodes",)``
+    for parhip, ``("nets",)`` or ``("nets", "verts")`` for parhyp,
+    ``("islands",)`` for the memetic ring) over the ranks of a
+    ``torch.distributed`` process group, and the rank's own device.
+  * ``repro/compat.py:shard_map`` — has none of its own: every rank of the
+    group runs the program's per-shard body at once on its own shard, as
+    one process per device, and holds the replicated vectors itself.
+  * ``jax.lax.psum`` / ``pmax`` / ``pmin`` over one axis — `Mesh.psum`,
+    `Mesh.pmax`, `Mesh.pmin`: an all-reduce on that axis's subgroup.
+  * ``jax.lax.axis_index`` — `Mesh.axis_index`.
+  * ``jax.lax.ppermute`` — `Mesh.ppermute`: point-to-point sends
+    (``dist.batch_isend_irecv``).
+  * the all-gather that SPMD partitioning inserts where the owned slices
+    of a vector become the replicated vector — `Mesh.all_gather`.
+
+Layout: rank r of the group sits at position ``np.unravel_index(r,
+shape)`` (row-major, as a jax ``Mesh`` over ``devices.reshape(shape)``).
+For every axis of a mesh of more than one dimension, the ranks that differ
+only along that axis form one subgroup.  ``dist.new_group`` is collective
+over the whole world, so such a mesh (and every `Mesh.view` of it with
+more than one dimension) is built on every rank of the default group, in
+the same order.
+
+A mesh without a group (`Mesh.local`) is a world of one: every collective
+is the identity, as on a 1-device jax mesh.  A mesh with a group calls
+``torch.distributed`` for every collective, also when the group holds one
+rank: a CUDA mesh's group is NCCL and a CPU mesh's gloo, and a collective
+that fails raises.  Each collective call issued is counted in
+``obs.metrics`` (`ALL_REDUCE`, `ALL_GATHER`, `PPERMUTE`).
+
+``torch.distributed`` is imported where a group is used, never when this
+module is imported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.csr import resolve_device
+from repro_torch.obs import metrics
+
+ALL_REDUCE = "mesh/all_reduce"
+ALL_GATHER = "mesh/all_gather"
+PPERMUTE = "mesh/ppermute"
+
+
+def _normal(dev: torch.device) -> torch.device:
+    """``dev`` with the current CUDA index filled in."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class Mesh:
+    """Ranks of a process group laid out over named axes (module
+    docstring).  ``group=None`` is a world of one on ``device``
+    (None = CUDA, which must be present)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 group=None, device=None):
+        self.shape: Tuple[int, ...] = tuple(int(s) for s in shape)
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        if (len(self.shape) != len(self.axis_names) or not self.shape
+                or min(self.shape) < 1
+                or len(set(self.axis_names)) != len(self.axis_names)):
+            raise ValueError(f"bad mesh shape {self.shape} / axes "
+                             f"{self.axis_names}")
+        self.device = _normal(resolve_device(device))
+        self.group = group
+        self.size = int(np.prod(self.shape))
+        self._groups = {a: None for a in self.axis_names}
+        if group is None:
+            if self.size != 1:
+                raise ValueError(f"a mesh of {self.size} ranks needs a "
+                                 f"process group")
+            self.rank = 0
+            self._ranks = [0]
+            return
+        import torch.distributed as dist
+        if dist.get_world_size(group) != self.size:
+            raise ValueError(f"mesh shape {self.shape} has {self.size} "
+                             f"ranks, the group {dist.get_world_size(group)}")
+        want = "nccl" if self.device.type == "cuda" else "gloo"
+        if dist.get_backend(group) != want:
+            raise ValueError(f"a {self.device.type} mesh needs a {want} "
+                             f"group, got {dist.get_backend(group)}")
+        self.rank = dist.get_rank(group)
+        self._ranks = list(dist.get_process_group_ranks(group))
+        if len(self.shape) == 1:
+            self._groups[self.axis_names[0]] = group
+            return
+        grid = np.arange(self.size).reshape(self.shape)
+        for i, axis in enumerate(self.axis_names):
+            for line in np.moveaxis(grid, i, -1).reshape(-1, self.shape[i]):
+                sub = dist.new_group([self._ranks[r] for r in line])
+                if self.rank in line:
+                    self._groups[axis] = sub
+
+    @classmethod
+    def local(cls, axis_names: Sequence[str] = ("nodes",),
+              device=None) -> "Mesh":
+        """A world of one on ``device`` (None = CUDA)."""
+        return cls((1,) * len(axis_names), axis_names, device=device)
+
+    @classmethod
+    def world(cls, axis_names: Sequence[str] = ("nodes",),
+              shape: Optional[Sequence[int]] = None, device=None) -> "Mesh":
+        """The default process group as a mesh; ``shape`` defaults to all
+        of its ranks on one axis."""
+        import torch.distributed as dist
+        if shape is None:
+            shape = (dist.get_world_size(),)
+        return cls(shape, axis_names, group=dist.group.WORLD, device=device)
+
+    def view(self, shape: Sequence[int],
+             axis_names: Sequence[str]) -> "Mesh":
+        """The same ranks, in the same order, under other axes (kahyparE
+        turns its ``islands`` mesh into a ``("nets",)`` one)."""
+        return Mesh(shape, axis_names, group=self.group, device=self.device)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({dict(zip(self.axis_names, self.shape))}, "
+                f"rank={self.rank}, device={self.device})")
+
+    # -- layout ------------------------------------------------------------
+    def extent(self, axis: Optional[str]) -> int:
+        """The axis's size (1 for ``axis=None``)."""
+        return 1 if axis is None else self.shape[self._axis(axis)]
+
+    def axis_index(self, axis: Optional[str]) -> int:
+        """This rank's coordinate along ``axis`` (0 for ``axis=None``)."""
+        if axis is None:
+            return 0
+        return int(np.unravel_index(self.rank, self.shape)[self._axis(axis)])
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no "
+                             f"{axis!r}")
+        return self.axis_names.index(axis)
+
+    # -- collectives -------------------------------------------------------
+    def _all_reduce(self, x: torch.Tensor, axis: Optional[str], op: str):
+        if axis is None:
+            return x
+        self._axis(axis)                  # an unknown axis raises, as in jax
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op),
+                        group=self._groups[axis])
+        metrics.inc(ALL_REDUCE)
+        return x
+
+    def psum(self, x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+        """Sum over ``axis`` (``None``: the identity).  Reduces the
+        contiguous ``x`` in place and returns it."""
+        return self._all_reduce(x, axis, "SUM")
+
+    def pmax(self, x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+        """Maximum over ``axis``, in place as `psum`."""
+        return self._all_reduce(x, axis, "MAX")
+
+    def pmin(self, x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+        """Minimum over ``axis``, in place as `psum`."""
+        return self._all_reduce(x, axis, "MIN")
+
+    def agree(self, flag: bool) -> bool:
+        """True on every rank exactly when ``flag`` is True on every rank
+        (a MIN over the whole mesh)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+            metrics.inc(ALL_REDUCE)
+        return bool(t.item())
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (one shape on all ranks) concatenated along
+        dim 0 in rank order."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        metrics.inc(ALL_GATHER)
+        return torch.cat(parts)
+
+    def ppermute(self, x: torch.Tensor,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``jax.lax.ppermute`` on a 1-D mesh: for each pair of ``perm``
+        the rank ``src`` sends ``x`` to the rank ``dst``; a rank that is
+        no pair's ``dst`` gets zeros."""
+        if len(self.shape) != 1:
+            raise ValueError(f"ppermute needs a 1-D mesh, got {self.shape}")
+        fwd = dict(perm)
+        back = {d: s for s, d in perm}
+        me = self.rank
+        out = torch.zeros_like(x)
+        if fwd.get(me) == me:
+            out.copy_(x)
+        if self.group is None:
+            if any(s != d for s, d in perm):
+                raise ValueError(f"a world of one cannot permute {perm}")
+            return out
+        import torch.distributed as dist
+        x = x.contiguous()
+        ops = []
+        if me in fwd and fwd[me] != me:
+            ops.append(dist.P2POp(dist.isend, x, self._ranks[fwd[me]],
+                                  group=self.group))
+        if me in back and back[me] != me:
+            ops.append(dist.P2POp(dist.irecv, out, self._ranks[back[me]],
+                                  group=self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            metrics.inc(PPERMUTE)
+        return out
+
+
+def check_mesh(mesh) -> None:
+    """Raise TypeError unless ``mesh`` is None or a `Mesh`: a foreign mesh
+    (a jax ``Mesh``, a stand-in object) is refused, never ignored."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.core.mesh.Mesh or "
+                        f"None, got {type(mesh).__name__}")
+
+
+def device_of(mesh: Optional[Mesh], device=None) -> torch.device:
+    """The device of an entry point called with ``mesh`` and ``device``:
+    the mesh's own (``device``, when given, must name it), else
+    ``resolve_device(device)``."""
+    check_mesh(mesh)
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and _normal(resolve_device(device)) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device

@@ -34,6 +34,7 @@ from repro_torch.core import coarsen as C
 from repro_torch.core import initial as I
 from repro_torch.core import multilevel as ML
 from repro_torch.core import refine as R
+from repro_torch.core.mesh import device_of
 from repro_torch.core.nodesep.refine import (SEP, boundary_to_separator,
                                              flow_separator_polish,
                                              refine_separator,
@@ -374,11 +375,13 @@ def memetic_nodesep_labels(g: Graph, eps: float = 0.20, preset: str = "eco",
     ``device`` (None = CUDA; raises without a card unless
     ``device="cpu"``) — the engine's protected-coarsening combine keeps
     both parents' 3-label states representable, so offspring separators
-    are never heavier than the seeding parent.  ``mesh`` must be None."""
+    are never heavier than the seeding parent.  ``mesh`` (a
+    `core.mesh.Mesh`) lays the islands out over its ranks for migration;
+    its device is the run's."""
     from repro_torch.core import memetic as MEM
     MEM.validate_memetic_params(n_islands, population, time_limit,
                                 generations)
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
     if g.n == 0:
         return np.zeros(0, dtype=np.int64)
     medium = SeparatorMedium(g, PRESETS[preset], recorder=report, device=dev)

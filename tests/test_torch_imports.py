@@ -3,7 +3,11 @@ tool import neither jax nor the JAX package `repro`, so the port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
 separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
 the memetic separator), process mapping and the ILP improvement, a
-reduced zamba2 forward and one served request run with both blocked."""
+reduced zamba2 forward and one served request run with both blocked.
+`core.mesh` imports ``torch.distributed`` only where a process group is
+used, so ``import repro_torch`` and the distributed programs on a world
+of one (parhip, parhyp, the distributed edge partition, a ring roll) run
+with it blocked too."""
 import ast
 import os
 import pathlib
@@ -34,7 +38,9 @@ def test_no_jax_or_reference_imports_in_source():
                 ("core", "memetic", "migrate.py"),
                 ("core", "memetic", "state.py"), ("core", "evolve.py"),
                 ("core", "kabape.py"), ("core", "mapping.py"),
-                ("core", "ilp.py"), ("launch", "topology.py")):
+                ("core", "ilp.py"), ("launch", "topology.py"),
+                ("core", "mesh.py"), ("core", "parhip.py"),
+                ("core", "hypergraph", "dist.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -117,5 +123,59 @@ def test_port_runs_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_torch_distributed_is_imported_only_where_a_group_is_used():
+    """No port module imports ``torch.distributed`` at its top level."""
+    for f in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(f.read_text())
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [f"{node.module}.{a.name}" for a in node.names]
+                     if isinstance(node, ast.ImportFrom) and node.module
+                     else [])
+            assert not any(n.startswith("torch.distributed")
+                           for n in names), (f, names)
+
+
+def test_world_of_one_runs_without_torch_distributed():
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        sys.modules["torch.distributed"] = None   # importing it now fails
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import importlib, pkgutil
+        import numpy as np
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        from repro_torch.core import interface, memetic
+        from repro_torch.core.edgepart import distributed_edge_partition
+        from repro_torch.core.mesh import Mesh
+        from repro_torch.core.parhip import parhip
+        from repro_torch.core.partition import is_feasible
+        from repro_torch.io.generators import grid2d, planted_hypergraph
+        g = grid2d(10, 10)
+        assert is_feasible(g, parhip(g, 2, 0.03, seed=1, device="cpu"), 2,
+                           0.03)
+        ep = distributed_edge_partition(g, 2, seed=1, device="cpu")
+        assert ep.shape == (g.m,)
+        hg = planted_hypergraph(60, 90, blocks=2, seed=1)
+        km1, part = interface.parhyp(hg.n, hg.m, None, None, hg.eptr,
+                                     hg.eind, 2, 0.05, seed=1, device="cpu")
+        assert 0 < km1 < 90 and len(part) == hg.n
+        mesh = Mesh.local(("islands",), device="cpu")
+        parts = np.arange(6, dtype=np.int32).reshape(3, 2)
+        assert (memetic.ring_roll(parts, 1, mesh) == np.roll(parts, 1, 0)
+                ).all()
+        print("ok", km1)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")

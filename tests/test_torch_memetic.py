@@ -18,6 +18,8 @@ import types
 
 import numpy as np
 import pytest
+import jax
+from jax.sharding import Mesh as JMesh
 
 from repro import obs as robs
 from repro.core import evolve as rE
@@ -296,23 +298,27 @@ def test_ring_roll_semantics_and_host_parity():
 
 
 def test_a_mesh_is_refused_never_ignored():
+    """A mesh that is not a ``repro_torch.core.mesh.Mesh`` (a stand-in
+    object, a jax ``Mesh``) raises TypeError at every entry that takes
+    one; nothing falls back to running without it."""
     mesh = types.SimpleNamespace(devices=np.array(["a", "b"]))
     one = types.SimpleNamespace(devices=np.array(["a"]))
+    jmesh = JMesh(np.array(jax.devices()[:1]), ("islands",))
     hg = tgen.planted_hypergraph(60, 90, blocks=2, seed=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tMEM.ring_roll(np.zeros((2, 3), np.int32), 1, mesh=one)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tMEM.evolve_islands(StubMedium.grid(4, 4), 2, 0.05,
                             tMEM.MemeticConfig(n_islands=1, population=1,
                                                generations=0), 1, mesh=one)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tE.kaffpaE(GRID, 2, 0.03, "fast", generations=0, mesh=one,
                    device="cpu")
-    for m in (one, mesh):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for m in (one, mesh, jmesh):
+        with pytest.raises(TypeError, match="core.mesh.Mesh"):
             tH.kahyparE(hg, 2, 0.03, "fast", generations=0, mesh=m,
                         device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(TypeError, match="core.mesh.Mesh"):
             tNS.memetic_node_separator(GRID, 0.2, "fast", generations=0,
                                        mesh=m, device="cpu")
 
