@@ -12,8 +12,11 @@ edge partition beside it, then the memetic programs (kaffpaE at a
 262k-vertex mesh, KaBaPE, kahyparE, the memetic separator), process
 mapping with the ILP improvement, and the distributed programs (parhip,
 parhyp, the distributed edge partition, the island ring) on a world of
-one, through an NCCL process group where a mesh is asked for, and prints
-what it measured.  Any failure exits non-zero before the result line.
+one, through an NCCL process group where a mesh is asked for, then the
+attention decoders at their published widths (minicpm-2B whole and
+served, llama4-scout's MoE with expert placement by kaffpa, deepseek-v2's
+MLA), and prints what it measured.  Any failure exits non-zero before the
+result line.
 Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
@@ -200,6 +203,44 @@ Phases:
     replication beside phase 22's; lp_affinity held at the path's shapes
     as in 29.
 
+35. minicpm-2B, the published config (40 layers, d_model 2304, 36 heads,
+    d_ff 5760, vocab_pad 122880, tied; 2,725,173,504 f32 parameters made
+    on the card from seed 0, counted and checked): the full-sequence
+    forward at B = 2, L = 2048 (wall after a warm-up, peak memory, finite
+    logits of shape (2, 2048, 122880)).  At L = 2048, S·Skv is exactly
+    ``ONLINE_THRESHOLD²``, so the forward takes the masked path: layer 0's
+    real q, k, v of a 4096-token prompt also go through ``_sdpa_online``
+    and ``_sdpa``, which agree within 1e-4 of max |out|.
+36. minicpm decode: ``prefill_step`` (one forward at cache_pos=0) of
+    prompts of 64 and 48 tokens into two slots of one cache, then 16
+    batched ``decode_step``s with per-row cursors; the prefills' last
+    logits and every step's within 2e-3 of max |logits| of the full
+    forward over that row's sequence; the host-clock time per decode step
+    beside the weight-read bound (the f32 weights at 3.35 TB/s).
+37. minicpm serve: phase 14's stream (6 requests, prompts of 16–64
+    tokens, 16 new tokens each, arrival ticks 0–8, 4 slots, max_len 256):
+    wall, tokens/s, step spans; every request gives 16 tokens inside the
+    vocabulary; each batcher prefill (token by token, as the JAX batcher
+    runs it) within 2e-3 of the forward at the prompt's last position.
+38. llama4-scout at its published width, 2 of 48 layers (6,475,146,240
+    parameters, untied): the forward at B = 1, L = 2048, then once more
+    with ``observe_gates``: each layer reports 2048 x 1 expert ids in
+    [0, 16); the expert-load histograms.  At capacity factor 8 (nothing
+    drops) token-by-token decode of 16 tokens within 2e-3 of the forward;
+    a batched decode of 4 rows with per-row cursors (each row dispatched
+    alone) within 1e-4 of each row decoded alone, over 8 steps, with the
+    layer-steps where two rows chose one expert counted.
+    ``expert_placement`` of layer 0's gates onto 4 shards on the card,
+    lp_affinity's count zeroed just before and read just after: a
+    permutation, at least one launch, every call held against its plain
+    version; ``place_experts`` keeps layer 0's ``moe_ffn`` output (rtol
+    1e-4, atol 1e-5).
+39. deepseek-v2 at its published width, 2 of 60 layers (8,992,814,080
+    parameters): the forward at B = 1, L = 1024; at capacity factor 8 a
+    48-token ``prefill_step`` and 16 absorbed one-token decode steps
+    within 2e-3 of the forward; the cache bytes per token.
+    Each model is freed before the next; each prints its peak memory.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
 """
@@ -256,6 +297,22 @@ MEM_GRID, PLAIN_GRID, KABAPE_GRID, MSEP_GRID = 512, 256, 256, 256
 MAP_GRID, ILP_GRID = 512, 64
 # islands x members x generations of every memetic phase
 MEM_ISLANDS, MEM_POP, MEM_GENS = 2, 2, 2
+# phases 35-39: the attention decoder families at their published widths,
+# f32 weights from seed 0.  llama4-scout (109B parameters) and deepseek-v2
+# (236B) do not fit one 80 GB card: their depth is cut to 2 layers.  The
+# parameter counts follow the reference pytree's shapes.
+DEC_DEPTH = {"minicpm_2b": None, "llama4_scout_17b_a16e": 2,
+             "deepseek_v2_236b": 2}
+DEC_PARAMS = {"minicpm_2b": 2_725_173_504,
+              "llama4_scout_17b_a16e": 6_475_146_240,
+              "deepseek_v2_236b": 8_992_814_080}
+# (B, L) of each model's full-sequence forward
+DEC_FWD = {"minicpm_2b": (2, 2048), "llama4_scout_17b_a16e": (1, 2048),
+           "deepseek_v2_236b": (1, 1024)}
+# phase 35's online-against-dense attention check: one prompt of this length
+ONLINE_L = 4096
+# phase 36: two prompts in separate slots, then batched decode steps
+DEC_PROMPTS, DEC_STEPS = (64, 48), 16
 
 
 class SmokeError(RuntimeError):
@@ -2008,6 +2065,325 @@ def distributed_phases(torch, np, dev, card, main_cut, kahypar_km1,
     return out
 
 
+def make_decoder(torch, T, arch, dev, card):
+    """The model of phases 35-39 at its published width (depth cut as
+    DEC_DEPTH says), made on the card from seed 0; its parameter count
+    is checked against DEC_PARAMS."""
+    from repro_torch.configs.base import get_config
+    full = get_config(arch)
+    cfg = (dataclasses.replace(full, n_layers=DEC_DEPTH[arch])
+           if DEC_DEPTH[arch] else full)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = timed(torch, lambda: T.init_params(cfg, seed=0, device=dev))
+    n = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {n} f32 parameters ({n * 4 / 1e9:.1f} GB) made on the "
+        f"card in {secs:.3f} s (layers {cfg.n_layers} of {full.n_layers}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"vocab_pad {cfg.vocab_pad}, tied embeddings {cfg.tie_embeddings}) "
+        f"[{card}]")
+    check(n == DEC_PARAMS[arch], f"{cfg.name}: {n} parameters, expected "
+          f"{DEC_PARAMS[arch]}")
+    return cfg, model
+
+
+def timed(torch, fn):
+    """(fn(), host-clock seconds) from a synchronised start to a
+    synchronised end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def timed_forward(torch, T, model, cfg, tokens, card):
+    """A warm-up, then one full-sequence forward timed with its peak
+    memory; the logits must be finite, of shape (B, L, vocab_pad)."""
+    T.forward(model, cfg, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    logits, wall = timed(torch, lambda: T.forward(model, cfg, tokens)[0])
+    peak = torch.cuda.max_memory_allocated()
+    b, l = tokens.shape
+    log(f"{cfg.name} forward B={b} L={l}: wall_s={wall:.4f} "
+        f"({b * l / wall:.1f} tokens/s), peak memory {peak} B "
+        f"({peak / 2**30:.2f} GiB) [{card}]")
+    check(logits.shape == (b, l, cfg.vocab_pad),
+          f"{cfg.name}: logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: non-finite logits")
+    return logits
+
+
+def decode_against_forward(torch, np, T, model, cfg, prompts, steps, dev,
+                           card):
+    """Each prompt prefilled into its own slot of one cache
+    (``prefill_step`` on the slot's view: one forward at cache_pos=0),
+    then ``steps`` batched greedy ``decode_step``s with per-row cursors;
+    each prefill's last logits and every step's against the full forward
+    over that row's sequence, within 2e-3 of max |logits| (the bound of
+    tests/test_models.py::test_decode_matches_full_forward).  Returns the
+    host-clock seconds of each decode step."""
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    smax = max(len(p) for p in prompts) + steps
+    caches = T.init_caches(cfg, len(prompts), smax, device=dev)
+    first = []
+    for r, p in enumerate(prompts):
+        view = {k: v[:, r:r + 1] for k, v in caches.items()}
+        first.append(prefill_step(model, cfg, p[None], view)[0][0])
+    tok = torch.stack(first).argmax(-1)
+    pos = torch.tensor([len(p) for p in prompts], device=dev)
+    fed, outs, walls = [], [], []
+    for _ in range(steps):
+        (lg, _), wall = timed(torch, lambda: decode_step(
+            model, cfg, tok[:, None], caches, pos))
+        walls.append(wall)
+        fed.append(tok)
+        outs.append(lg)
+        tok, pos = lg.argmax(-1), pos + 1
+    worst = 0.0
+    for r, p in enumerate(prompts):
+        seq = torch.cat([p, torch.stack(fed)[:, r]])[None]
+        want = T.forward(model, cfg, seq)[0][0, len(p) - 1:]
+        got = torch.stack([first[r]] + [o[r] for o in outs])
+        worst = max(worst, max_rel(torch, got, want)[1])
+    log(f"{cfg.name} decode: prefill of {[len(p) for p in prompts]} tokens "
+        f"in separate slots, then {steps} batched decode steps with per-row "
+        f"cursors: worst rel to the full forward {worst:g} (max 2e-3); host "
+        f"clock per decode step median {np.median(walls) * 1e3:.3f} ms (min "
+        f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}) [{card}]")
+    check(worst <= 2e-3, f"{cfg.name}: decode and forward differ: {worst}")
+    return walls
+
+
+def expert_loads(np, gates, n_experts, cap) -> list:
+    """Per observed MoE layer: its expert-load histogram and the pairs
+    beyond the capacity ``cap`` (dropped)."""
+    out = []
+    for g in gates:
+        load = np.bincount(g.reshape(-1), minlength=n_experts)
+        out.append({"load": load.tolist(),
+                    "dropped": int(np.maximum(load - cap, 0).sum())})
+    return out
+
+
+def minicpm_phases(torch, np, dev, card, tokens) -> None:
+    """Phases 35-37: minicpm-2B's forward, decode and serve."""
+    from repro_torch import obs
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import (apply_rope, causal_mask, rmsnorm,
+                                           rope_freqs)
+    from repro_torch.serve.batching import serve_stream
+
+    # -- 35. minicpm-2B, the full published config ---------------------------
+    cfg, model = make_decoder(torch, T, "minicpm_2b", dev, card)
+    timed_forward(torch, T, model, cfg, tokens(cfg, *DEC_FWD["minicpm_2b"]),
+                  card)
+    # at L = 2048 the forward takes the masked path (S·Skv is exactly
+    # ONLINE_THRESHOLD²): layer 0's real q, k, v of a longer prompt through
+    # both attentions
+    blk = model.blocks[0]
+    x = rmsnorm(model.embed[tokens(cfg, 1, ONLINE_L)]
+                * math.sqrt(cfg.d_model), blk.ln1, cfg.norm_eps)
+    cos, sin = rope_freqs(torch.arange(ONLINE_L, device=dev)[None], cfg.hd,
+                          cfg.rope_theta)
+    q, k, v = ((x @ w).reshape(1, ONLINE_L, -1, cfg.hd)
+               for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv))
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    scale = 1.0 / math.sqrt(cfg.hd)
+    online, wall_on = timed(torch, lambda: A._sdpa_online(
+        q, k, v, None, scale, q_offset=0))
+    dense, wall_de = timed(torch, lambda: A._sdpa(
+        q, k, v, causal_mask(ONLINE_L, ONLINE_L, 0, dev), None, scale))
+    err, rel = max_rel(torch, online, dense)
+    log(f"minicpm-2b layer 0 attention on a {ONLINE_L}-token prompt: "
+        f"_sdpa_online {wall_on:.4f} s, _sdpa {wall_de:.4f} s, max |err| "
+        f"{err:g}, rel to max |out| {rel:g} (max 1e-4) [{card}]")
+    check(rel <= 1e-4, f"online and dense attention differ: {rel}")
+    del q, k, v, x, online, dense
+
+    # -- 36. minicpm decode --------------------------------------------------
+    walls = decode_against_forward(
+        torch, np, T, model, cfg, [tokens(cfg, n) for n in DEC_PROMPTS],
+        DEC_STEPS, dev, card)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"minicpm-2b decode step: host clock median "
+        f"{np.median(walls) * 1e3:.3f} ms against the weight-read bound "
+        f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms ({n_bytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+
+    # -- 37. minicpm serve: phase 14's stream --------------------------------
+    rng = np.random.default_rng(2)
+    stream = [(int(rng.integers(0, 9)),
+               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
+               16) for _ in range(6)]
+    rec = obs.Recorder("serve")
+    with obs.use(rec):
+        reqs, wall = timed(torch, lambda: serve_stream(
+            model, cfg, stream, batch_slots=4, max_len=256))
+    n_new = sum(len(r.out) for r in reqs)
+    log(f"serve minicpm-2b 6 requests (prompts "
+        f"{[len(p) for _, p, _ in stream]}, arrival ticks "
+        f"{[a for a, _, _ in stream]}, 4 slots, max_len 256): wall_s="
+        f"{wall:.4f} new tokens={n_new} ({n_new / wall:.2f} tokens/s); step "
+        f"spans (host clock, count and s: prefill, and decode by batch "
+        f"rows): {json.dumps(step_spans(rec))} [{card}]")
+    for r in reqs:
+        check(r.done and len(r.out) == 16,
+              f"request {r.rid} finished with {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab_pad for t in r.out),
+              f"request {r.rid} produced a token outside the vocabulary")
+    worst = max(max_rel(torch, r.logits, T.forward(
+        model, cfg, torch.tensor([p], device=dev))[0][0, -1])[1]
+        for r, (_, p, _) in zip(reqs, stream))
+    log(f"cross-check: batcher prefill (token by token) vs the forward at "
+        f"the prompt's last position: worst rel {worst:g} (max 2e-3)")
+    check(worst <= 2e-3, f"batcher prefill and forward differ: {worst}")
+    log(f"minicpm-2b phases: peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+
+
+def llama4_phases(torch, np, dev, card, tokens, gen) -> tuple:
+    """Phase 38: llama4-scout's forward with the gate tap, decode,
+    per-row dispatch and expert placement; returns (lp_affinity launches
+    on the placement path, max |err| of its calls)."""
+    from repro_torch import obs
+    from repro_torch.kernels import lp_affinity
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import prefill_step
+    arch = "llama4_scout_17b_a16e"
+    cfg, model = make_decoder(torch, T, arch, dev, card)
+    toks = tokens(cfg, *DEC_FWD[arch])
+    timed_forward(torch, T, model, cfg, toks, card)
+    gates = []
+    with MOE.observe_gates(gates.append):
+        T.forward(model, cfg, toks)
+    t = toks.numel()
+    check(len(gates) == cfg.n_layers, f"gate tap: {len(gates)} reports")
+    for g in gates:
+        check(g.shape == (t, cfg.top_k) and g.min() >= 0
+              and g.max() < cfg.n_experts,
+              f"gate tap: shape {g.shape}, range {g.min()}..{g.max()}")
+    cap = MOE.capacity(t, cfg)
+    log(f"llama4-scout gates per layer ({t} tokens x top-{cfg.top_k}, "
+        f"capacity {cap}): "
+        f"{json.dumps(expert_loads(np, gates, cfg.n_experts, cap))}")
+    # at capacity factor 8 nothing drops, so token by token equals the
+    # forward (tests/test_models.py::test_moe_mismatch_is_capacity_drops_only)
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    seq = toks[:, :DEC_STEPS]
+    full = T.forward(model, cfg8, seq)[0]
+    caches = T.init_caches(cfg8, 1, DEC_STEPS, device=dev)
+    inc = torch.cat([T.forward(model, cfg8, seq[:, i:i + 1], caches=caches,
+                               cache_pos=i)[0] for i in range(DEC_STEPS)], 1)
+    _, rel = max_rel(torch, inc, full)
+    log(f"llama4-scout token-by-token decode vs forward over {DEC_STEPS} "
+        f"tokens at capacity factor 8: rel {rel:g} (max 2e-3)")
+    check(rel <= 2e-3, f"llama4 decode and forward differ: {rel}")
+    # a batched decode of 4 rows (per-row cursors: each row dispatches
+    # alone, with its own capacity) equals each row decoded alone
+    lens = (5, 9, 3, 7)
+    smax = max(lens) + 8
+    caches = T.init_caches(cfg, len(lens), smax, device=dev)
+    solo = [T.init_caches(cfg, 1, smax, device=dev) for _ in lens]
+    last = []
+    for r, n in enumerate(lens):
+        p = tokens(cfg, 1, n)
+        view = {k: v[:, r:r + 1] for k, v in caches.items()}
+        last.append(prefill_step(model, cfg, p, view)[0][0].argmax())
+        prefill_step(model, cfg, p, solo[r])
+    tok, pos = torch.stack(last), torch.tensor(lens, device=dev)
+    worst, step_gates = 0.0, []
+    for _ in range(8):
+        with MOE.observe_gates(step_gates.append):
+            lg = T.forward(model, cfg, tok[:, None], caches=caches,
+                           cache_pos=pos)[0][:, 0]
+        for r in range(len(lens)):
+            alone = T.forward(model, cfg, tok[r:r + 1, None], caches=solo[r],
+                              cache_pos=int(pos[r]))[0][0, 0]
+            worst = max(worst, max_rel(torch, lg[r], alone)[1])
+        tok, pos = lg.argmax(-1), pos + 1
+    shared = sum(len(set(g[:, 0].tolist())) < len(lens) for g in step_gates)
+    log(f"llama4-scout batched decode of {len(lens)} rows vs each row alone, "
+        f"8 steps: worst rel {worst:g} (max 1e-4); layer-steps where two "
+        f"rows chose one expert: {shared} of {len(step_gates)} (one group "
+        f"of {len(lens)} tokens would have capacity "
+        f"{MOE.capacity(len(lens), cfg)})")
+    check(worst <= 1e-4, f"batched decode differs from rows alone: {worst}")
+    # expert placement of layer 0 on 4 shards by the port's kaffpa
+    with capturing(torch, lp_affinity, "affinity_cuda") as calls:
+        torch.cuda.synchronize()
+        obs.metrics.reset(LAUNCHES)
+        perm, wall = timed(torch, lambda: MOE.expert_placement(
+            gates[0], cfg.n_experts, 4, seed=1, device=dev))
+        launches = int(obs.metrics.get(LAUNCHES))
+    load = np.bincount(gates[0].reshape(-1), minlength=cfg.n_experts)
+    log(f"expert_placement(layer 0's gates, {cfg.n_experts}, 4): perm "
+        f"{perm.tolist()}, shard loads "
+        f"{load[perm].reshape(4, -1).sum(1).tolist()}, wall_s={wall:.4f}, "
+        f"lp_affinity launches={launches} [{card}]")
+    check(sorted(perm.tolist()) == list(range(cfg.n_experts)),
+          "expert_placement is not a permutation")
+    check(launches > 0, "expert_placement never launched lp_affinity")
+    lp_err = replay_lp(torch, calls, "expert placement")
+    p0 = model.blocks[0].moe
+    x = torch.randn(1, 64, cfg.d_model, generator=gen, device=dev) * 0.1
+    y0 = MOE.moe_ffn(p0, x, cfg)
+    y1 = MOE.moe_ffn(MOE.place_experts(p0, perm), x, cfg)
+    excess = float(((y1 - y0).abs() - 1e-4 * y0.abs()).max())
+    log(f"place_experts: layer 0's moe_ffn with the placed stacks vs "
+        f"unplaced: max |err| {float((y1 - y0).abs().max()):g}, "
+        f"|err| - 1e-4|y| max {excess:g} (max 1e-5, "
+        f"tests/test_models.py's rtol and atol)")
+    check(excess <= 1e-5, f"placed experts change moe_ffn: {excess}")
+    log(f"llama4-scout phases: peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return launches, lp_err
+
+
+def deepseek_phases(torch, np, dev, card, tokens) -> None:
+    """Phase 39: deepseek-v2's forward and absorbed decode."""
+    from repro_torch.models import transformer as T
+    arch = "deepseek_v2_236b"
+    cfg, model = make_decoder(torch, T, arch, dev, card)
+    toks = tokens(cfg, *DEC_FWD[arch])
+    timed_forward(torch, T, model, cfg, toks, card)
+    # the absorbed one-token steps against the forward, nothing dropped
+    decode_against_forward(
+        torch, np, T, model, dataclasses.replace(cfg, capacity_factor=8.0),
+        [toks[0, :DEC_PROMPTS[1]]], DEC_STEPS, dev, card)
+    per_token = (cfg.kv_lora + cfg.rope_head_dim) * 4 * cfg.n_layers
+    full_kv = (2 * cfg.n_heads * (cfg.nope_head_dim + cfg.rope_head_dim) * 4
+               * cfg.n_layers)
+    log(f"deepseek-v2 cache: {per_token} B per token at {cfg.n_layers} "
+        f"layers ((kv_lora {cfg.kv_lora} + rope {cfg.rope_head_dim}) x 4 B "
+        f"x layers; K and V of {cfg.n_heads} heads would take {full_kv} B)")
+    log(f"deepseek-v2 phases: peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+
+
+def decoder_phases(torch, np, dev, card) -> dict:
+    """Phases 35-39, one model at a time (each freed before the next);
+    returns lp_affinity's launches on the expert placement path and,
+    under "errors", its largest difference from the plain version on that
+    path's calls."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def tokens(cfg, *shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+
+    minicpm_phases(torch, np, dev, card, tokens)
+    torch.cuda.empty_cache()
+    launches, lp_err = llama4_phases(torch, np, dev, card, tokens, gen)
+    torch.cuda.empty_cache()
+    deepseek_phases(torch, np, dev, card, tokens)
+    torch.cuda.empty_cache()
+    return {"expert_placement": launches, "errors": {"lp_affinity": lp_err}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found: run chip_smoke.py "
@@ -2158,6 +2534,7 @@ def main() -> int:
     paths = memetic_phases(torch, np, dev, card)
     dpaths = distributed_phases(torch, np, dev, card, cut, kahypar_km1,
                                 ep_replication)
+    dec = decoder_phases(torch, np, dev, card)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity
@@ -2168,7 +2545,8 @@ def main() -> int:
         "memetic_separator": paths["memetic_separator"]}
     errs = paths["errors"]
     derrs = dpaths["errors"]
-    max_err = max(max_err, errs["lp_affinity"], derrs["lp_affinity"])
+    max_err = max(max_err, errs["lp_affinity"], derrs["lp_affinity"],
+                  dec["errors"]["lp_affinity"])
     pin_row["max_abs_err"] = max(pin_row["max_abs_err"], errs["pin_count"],
                                  derrs["pin_count"])
     sep_row["max_abs_err"] = max(sep_row["max_abs_err"],
@@ -2191,7 +2569,8 @@ def main() -> int:
             "parhip": dpaths["parhip"],
             "parhip_social": dpaths["parhip_social"],
             "distributed_edge_partition": dpaths[
-                "distributed_edge_partition"]}},
+                "distributed_edge_partition"],
+            "expert_placement": dec["expert_placement"]}},
         pin_row, *ssd_rows, sep_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

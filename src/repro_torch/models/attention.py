@@ -1,6 +1,8 @@
 """GQA attention with RoPE and a KV cache (port of
-``repro/models/attention.py``, the flavour the hybrid family uses: causal
-self-attention with the config's logit softcap).
+``repro/models/attention.py``): causal or bidirectional self-attention,
+sliding windows (gemma2's local layers) and the config's logit softcap.
+Cross-attention (``kv_override``, ``init_cross_kv``) waits for the audio
+family.
 
 Every position cursor is per row: ``cache_pos`` may be a (B,) tensor, so a
 batch of slots, each at its own position, runs as one batch dimension
@@ -33,7 +35,8 @@ def init_attn(gen: torch.Generator, cfg, dtype) -> dict:
 
 def _sdpa(q, k, v, mask, cap, scale):
     """q: (B,Sq,H,hd) k/v: (B,Skv,KV,hd) with GQA broadcast; mask
-    (Sq,Skv) or per row (B,Sq,Skv), True = attend."""
+    (Sq,Skv) or per row (B,Sq,Skv), True = attend (it carries the
+    causality and the window: see ``attention``)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -51,11 +54,27 @@ ONLINE_THRESHOLD = 2048      # use online softmax when Sq·Skv exceeds this²
 KV_BLOCK = 1024
 
 
-def _sdpa_online(q, k, v, cap, scale, *, q_offset):
+def _kv_mask(sq, skv, q_offset, window, is_causal, device, lo=0):
+    """The (Sq, Skv) or per-row (B, Sq, Skv) mask of keys lo..lo+skv−1,
+    as the reference's online path builds it: causal (k ≤ q) when
+    ``is_causal``, and k > q − window whenever a window is given."""
+    if is_causal:
+        return causal_mask(sq, skv, q_offset - lo, device, window)
+    q = torch.arange(sq, device=device)[:, None] - lo
+    q = q + (q_offset.reshape(-1, 1, 1) if torch.is_tensor(q_offset)
+             else q_offset)
+    keys = torch.arange(skv, device=device)
+    return (keys > q - window) if window is not None else \
+        torch.ones_like(keys <= q)
+
+
+def _sdpa_online(q, k, v, cap, scale, *, q_offset, window=None,
+                 is_causal=True):
     """Flash-style online-softmax attention: a loop over KV blocks carrying
     (running max, normalizer, weighted accumulator).  Peak live buffer is
     O(Sq · KV_BLOCK) instead of O(Sq · Skv).  ``q_offset`` is an int or a
-    (B,) tensor of per-row offsets."""
+    (B,) tensor of per-row offsets; every block is masked by causality and
+    by ``window`` (None = global), as the reference masks it."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     kvh = k.shape[2]
@@ -69,7 +88,7 @@ def _sdpa_online(q, k, v, cap, scale, *, q_offset):
     acc = torch.zeros((b, kvh, rep, sq, hd), device=dev)
     for bi in range(nb):
         lo, hi = bi * kv_block, min(skv, (bi + 1) * kv_block)
-        msk = causal_mask(sq, hi - lo, q_offset - lo, dev)
+        msk = _kv_mask(sq, hi - lo, q_offset, window, is_causal, dev, lo)
         msk = msk.reshape((-1,) + msk.shape[-2:])              # (B|1,Sq,kv)
         s_blk = torch.einsum("bqgrd,bkgd->bgrqk", qg, k[:, lo:hi]).float()
         s_blk = softcap(s_blk * scale, cap)
@@ -85,13 +104,34 @@ def _sdpa_online(q, k, v, cap, scale, *, q_offset):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
-def attention(p, x, cfg, positions, *, cache=None, cache_pos=None):
+def cache_slots(cache_pos, b: int, s: int, smax: int, device):
+    """(q_offset, rows, cols): the query offset of a step of ``s`` tokens
+    at ``cache_pos`` (an int, or a (B,) tensor of per-row cursors) and the
+    index that writes its entries into a (B, smax, ...) cache, the start
+    clamped into the cache as ``dynamic_update_slice`` clamps it.  An int
+    cursor stays on the host."""
+    last = smax - s
+    if torch.is_tensor(cache_pos):
+        q_offset = cache_pos.reshape(-1).expand(b)
+        rows = torch.arange(b, device=device)[:, None]
+        cols = (q_offset.clamp(0, last)[:, None]
+                + torch.arange(s, device=device))
+        return q_offset, rows, cols
+    q_offset = int(cache_pos)
+    start = min(max(q_offset, 0), last)
+    return q_offset, slice(None), slice(start, start + s)
+
+
+def attention(p, x, cfg, positions, *, window=None, is_causal=True,
+              cache=None, cache_pos=None):
     """Returns (out, cache).  ``p`` holds wq/wk/wv/wo.
 
-    positions: (S,) or per row (B, S).  cache: dict(k=(B,Smax,KV,hd), v=…),
-    written in place at ``cache_pos`` (an int or a (B,) tensor of per-row
-    cursors; the write start is clamped into the cache as
-    ``dynamic_update_slice`` clamps it).
+    positions: (S,) or per row (B, S).  window: the sliding window of a
+    local layer (None = global; the reference's ``1 << 30`` masks the
+    same).  cache: dict(k=(B,Smax,KV,hd), v=…), written in place at
+    ``cache_pos`` (an int or a (B,) tensor of per-row cursors; the write
+    start is clamped into the cache as ``dynamic_update_slice`` clamps
+    it).
     """
     b, s, d = x.shape
     hd = cfg.hd
@@ -103,25 +143,19 @@ def attention(p, x, cfg, positions, *, cache=None, cache_pos=None):
     k = apply_rope(k, cos, sin)
     q_offset = 0
     if cache is not None:
-        last = cache["k"].shape[1] - s
-        if torch.is_tensor(cache_pos):
-            q_offset = cache_pos.reshape(-1).expand(b)
-            rows = torch.arange(b, device=x.device)[:, None]
-            cols = (q_offset.clamp(0, last)[:, None]
-                    + torch.arange(s, device=x.device))
-        else:
-            q_offset = int(cache_pos)
-            rows = slice(None)
-            start = min(max(q_offset, 0), last)
-            cols = slice(start, start + s)
+        q_offset, rows, cols = cache_slots(cache_pos, b, s,
+                                           cache["k"].shape[1], x.device)
         cache["k"][rows, cols] = k.to(cache["k"].dtype)
         cache["v"][rows, cols] = v.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
     scale = 1.0 / math.sqrt(hd)
     if s * k.shape[1] > ONLINE_THRESHOLD ** 2:
         out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
-                           q_offset=q_offset)
+                           q_offset=q_offset, window=window,
+                           is_causal=is_causal)
     else:
-        mask = causal_mask(s, k.shape[1], q_offset, x.device)
+        # the reference's dense path applies the window to causal masks only
+        mask = _kv_mask(s, k.shape[1], q_offset,
+                        window if is_causal else None, is_causal, x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
     return out.reshape(b, s, -1) @ p.wo, cache

@@ -39,6 +39,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """The 2-matrix GELU MLP (starcoder2) with the tanh approximation,
+    ``jax.nn.gelu``'s default."""
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float) -> tuple:
     """positions: (...,) integer → cos/sin of shape (..., dim//2)."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
@@ -56,17 +63,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
-def causal_mask(q_len: int, kv_len: int, q_offset=0,
-                device=None) -> torch.Tensor:
+def causal_mask(q_len: int, kv_len: int, q_offset=0, device=None,
+                window: Optional[int] = None) -> torch.Tensor:
     """(q_len, kv_len) bool mask, True = attend; query i sits at position
     i + ``q_offset``.  A (B,) tensor ``q_offset`` gives one mask per row,
-    (B, q_len, kv_len)."""
+    (B, q_len, kv_len).  ``window`` keeps only keys k > q − window
+    (sliding-window layers; None = global)."""
     q = torch.arange(q_len, device=device)[:, None]
     if torch.is_tensor(q_offset):
         q = q + q_offset.reshape(-1, 1, 1)
     else:
         q = q + q_offset
-    return torch.arange(kv_len, device=device) <= q
+    k = torch.arange(kv_len, device=device)
+    m = k <= q
+    if window is not None:
+        m = m & (k > q - window)
+    return m
 
 
 class ParamTree(torch.nn.Module):

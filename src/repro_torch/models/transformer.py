@@ -1,13 +1,19 @@
-"""The decoder assembler (port of ``repro/models/transformer.py``), hybrid
-family only so far:
+"""The decoder assembler (port of ``repro/models/transformer.py``):
 
-  hybrid — zamba2: a Mamba2 stack with ONE weight-shared attention+MLP
-           block applied after every `attn_every` Mamba layers (its KV
-           caches are per *application*).
+  dense   — pre-norm GQA + SwiGLU (minicpm, mistral-large), or a 2-matrix
+            GELU MLP (starcoder2); gemma2 adds alternating local/global
+            windows, logit softcaps and post-norms
+  vlm     — internvl2: the dense decoder after stub patch embeddings
+            (``prefix_embeds``)
+  moe     — llama4-scout (top-1 + shared), deepseek-v2 (MLA + 2 shared +
+            160 routed top-6)
+  hybrid  — zamba2: a Mamba2 stack with ONE weight-shared attention+MLP
+            block applied after every `attn_every` Mamba layers (its KV
+            caches are per *application*)
 
-The other families (dense, moe, ssm, audio, vlm) raise
-`NotImplementedError`; they are ROADMAP queue 1 item 10.  Sharding
-constraints are the identity on one card, and remat waits for training.
+ssm (rwkv6) and audio (whisper) raise `NotImplementedError`: they are
+ROADMAP queue 1 item 10.  Sharding constraints are the identity on one
+card, and remat waits for training.
 
 ``forward`` runs with caches updated in place (the reference returns new
 caches; here the returned dict is the one passed in).
@@ -24,26 +30,80 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.csr import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.layers import (ParamTree, normal, rmsnorm, softcap,
-                                       swiglu)
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models.layers import (ParamTree, gelu_mlp, normal, rmsnorm,
+                                       softcap, swiglu)
 
 
-def _require_hybrid(cfg: ArchConfig) -> None:
-    if cfg.family != "hybrid":
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family == "ssm":
         raise NotImplementedError(
-            f"the port runs the hybrid family only; {cfg.name} is "
-            f"{cfg.family!r} (ROADMAP.md queue 1 item 10)")
-    if cfg.n_layers % cfg.attn_every:
+            f"{cfg.name} is 'ssm' (the rwkv6 time and channel mix): not "
+            f"ported yet (ROADMAP.md queue 1 item 10)")
+    if cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name} is {cfg.family!r} (an encoder and "
+            f"cross-attention): not ported yet (ROADMAP.md queue 1 item 10)")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
                          f"attn_every={cfg.attn_every}")
 
 
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
 def _init_mlp(gen: torch.Generator, cfg, dtype) -> dict:
-    return {
-        "w_gate": normal(gen, (cfg.d_model, cfg.d_ff), 0.02, dtype),
-        "w_up": normal(gen, (cfg.d_model, cfg.d_ff), 0.02, dtype),
-        "w_down": normal(gen, (cfg.d_ff, cfg.d_model), 0.02, dtype),
-    }
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gelu:            # starcoder2: 2-matrix GELU MLP
+        return {"w_up": normal(gen, (d, f), 0.02, dtype),
+                "w_down": normal(gen, (f, d), 0.02, dtype)}
+    return {"w_gate": normal(gen, (d, f), 0.02, dtype),
+            "w_up": normal(gen, (d, f), 0.02, dtype),
+            "w_down": normal(gen, (f, d), 0.02, dtype)}
+
+
+def _mlp(p, x, cfg):
+    if cfg.mlp_gelu:
+        return gelu_mlp(x, p.w_up, p.w_down)
+    return swiglu(x, p.w_gate, p.w_up, p.w_down)
+
+
+def _init_block(gen: torch.Generator, cfg, dtype, zeros) -> dict:
+    d = cfg.d_model
+    p = {"ln1": zeros(d)}
+    p["attn"] = (MLA.init_mla(gen, cfg, dtype) if cfg.is_mla
+                 else A.init_attn(gen, cfg, dtype))
+    p["ln2"] = zeros(d)
+    if cfg.is_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg, dtype)
+    if cfg.local_global_alternate:      # gemma2 post-norms
+        p["post1"] = zeros(d)
+        p["post2"] = zeros(d)
+    return p
+
+
+class LM(nn.Module):
+    """What every family holds: the embedding, the final norm's gain and,
+    where the embeddings are untied, ``lm_head`` (d, vocab_pad)."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        _require_ported(cfg)
+        self.cfg = cfg
+        self.embed = _frozen(tree["embed"])
+        self.final_gamma = _frozen(tree["final_gamma"])
+        if not cfg.tie_embeddings:
+            self.lm_head = _frozen(tree["lm_head"])
+
+    def forward(self, tokens, caches=None, cache_pos=None,
+                engine: Optional[str] = None, prefix_embeds=None):
+        return forward(self, self.cfg, tokens, caches=caches,
+                       cache_pos=cache_pos, engine=engine,
+                       prefix_embeds=prefix_embeds)
 
 
 class MambaBlock(nn.Module):
@@ -51,38 +111,45 @@ class MambaBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
-        self.ln1 = nn.Parameter(tree["ln1"], requires_grad=False)
+        self.ln1 = _frozen(tree["ln1"])
         self.mamba = M2.Mamba2(cfg, tree["mamba"])
 
 
-class HybridLM(nn.Module):
+class HybridLM(LM):
     """zamba2: ``blocks`` (n_layers Mamba layers) and one ``shared``
     attention+MLP block; ``state_dict`` names follow the reference pytree
     (``blocks.<i>.mamba.in_proj`` for ``params["blocks"]["mamba"]
     ["in_proj"][i]``)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        super().__init__()
-        _require_hybrid(cfg)
-        self.cfg = cfg
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.final_gamma = nn.Parameter(tree["final_gamma"],
-                                        requires_grad=False)
+        super().__init__(cfg, tree)
         self.blocks = nn.ModuleList(MambaBlock(cfg, b)
                                     for b in tree["blocks"])
         self.shared = ParamTree(tree["shared"])
 
-    def forward(self, tokens, caches=None, cache_pos=None,
-                engine: Optional[str] = None):
-        return forward(self, self.cfg, tokens, caches=caches,
-                       cache_pos=cache_pos, engine=engine)
+
+class DecoderLM(LM):
+    """The dense, vlm and moe families: ``blocks`` holds one
+    attention (or MLA) + MLP (or MoE) block per layer; ``state_dict`` names
+    follow the reference pytree (``blocks.<i>.attn.wq``,
+    ``blocks.<i>.moe.w_gate`` for ``params["blocks"]["moe"]["w_gate"][i]``,
+    ``lm_head``)."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__(cfg, tree)
+        self.blocks = nn.ModuleList(ParamTree(b) for b in tree["blocks"])
+
+
+def model_class(cfg: ArchConfig) -> type:
+    _require_ported(cfg)
+    return HybridLM if cfg.family == "hybrid" else DecoderLM
 
 
 def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
-                device=None) -> HybridLM:
+                device=None) -> LM:
     """Random weights from ``seed``, drawn on ``device`` (None = CUDA;
     raises without a card unless ``device="cpu"``)."""
-    _require_hybrid(cfg)
+    cls = model_class(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
@@ -90,35 +157,50 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    tree = {
-        "embed": normal(gen, (cfg.vocab_pad, d), 0.02, dtype),
-        "final_gamma": zeros(d),
-        "blocks": [{"ln1": zeros(d), "mamba": M2.init_mamba2(gen, cfg, dtype)}
-                   for _ in range(cfg.n_layers)],
-        "shared": {"ln1": zeros(d), "attn": A.init_attn(gen, cfg, dtype),
-                   "ln2": zeros(d), "mlp": _init_mlp(gen, cfg, dtype)},
-    }
-    return HybridLM(cfg, tree)
+    tree = {"embed": normal(gen, (cfg.vocab_pad, d), 0.02, dtype),
+            "final_gamma": zeros(d)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal(gen, (d, cfg.vocab_pad), 0.02, dtype)
+    if cfg.family == "hybrid":
+        tree["blocks"] = [{"ln1": zeros(d),
+                           "mamba": M2.init_mamba2(gen, cfg, dtype)}
+                          for _ in range(cfg.n_layers)]
+        tree["shared"] = {"ln1": zeros(d), "attn": A.init_attn(gen, cfg, dtype),
+                          "ln2": zeros(d), "mlp": _init_mlp(gen, cfg, dtype)}
+    else:
+        tree["blocks"] = [_init_block(gen, cfg, dtype, zeros)
+                          for _ in range(cfg.n_layers)]
+    return cls(cfg, tree)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None) -> dict:
-    """The reference's hybrid cache layout: ``attn.k/v`` (groups, B,
+    """The reference's cache layouts.  hybrid: ``attn.k/v`` (groups, B,
     max_len, kv, hd), ``ssm`` (layers, B, nh, N, P), ``conv`` (layers, B,
-    K−1, C)."""
-    _require_hybrid(cfg)
+    K−1, C); MLA: ``ckv`` (layers, B, max_len, kv_lora), ``kr`` (layers,
+    B, max_len, rope_hd); otherwise ``k``/``v`` (layers, B, max_len, kv,
+    hd).  Every leaf has the batch on dim 1."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    groups = cfg.n_layers // cfg.attn_every
-    kv = (groups, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {
-        "attn": {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                 "v": torch.zeros(kv, dtype=dtype, device=dev)},
-        "ssm": torch.zeros(cfg.n_layers, batch, cfg.ssm_nheads,
-                           cfg.ssm_state, cfg.ssm_head_dim, device=dev),
-        "conv": torch.zeros(cfg.n_layers, batch, cfg.ssm_conv - 1,
-                            cfg.d_inner + 2 * cfg.ssm_state, dtype=dtype,
-                            device=dev),
-    }
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.family == "hybrid":
+        kv = (cfg.n_layers // cfg.attn_every, batch, max_len, cfg.n_kv_heads,
+              cfg.hd)
+        return {
+            "attn": {"k": zeros(*kv), "v": zeros(*kv)},
+            "ssm": zeros(cfg.n_layers, batch, cfg.ssm_nheads, cfg.ssm_state,
+                         cfg.ssm_head_dim, dt=torch.float32),
+            "conv": zeros(cfg.n_layers, batch, cfg.ssm_conv - 1,
+                          cfg.d_inner + 2 * cfg.ssm_state),
+        }
+    if cfg.is_mla:
+        return {"ckv": zeros(cfg.n_layers, batch, max_len, cfg.kv_lora),
+                "kr": zeros(cfg.n_layers, batch, max_len, cfg.rope_head_dim)}
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": zeros(*kv), "v": zeros(*kv)}
 
 
 def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
@@ -148,28 +230,78 @@ def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
     return x
 
 
+def layer_window(cfg: ArchConfig, layer: int) -> Optional[int]:
+    """The sliding window of ``layer`` (None = global): even layers are
+    local when the config alternates local and global layers, else every
+    layer has the config's window, if any."""
+    if cfg.window and (not cfg.local_global_alternate or layer % 2 == 0):
+        return cfg.window
+    return None
+
+
+def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    if cfg.is_mla:
+        a, _ = MLA.mla_attention(p.attn, h, cfg, positions, cache=cache,
+                                 cache_pos=cache_pos)
+    else:
+        a, _ = A.attention(p.attn, h, cfg, positions, window=window,
+                           cache=cache, cache_pos=cache_pos)
+    if cfg.local_global_alternate:
+        a = rmsnorm(a, p.post1, cfg.norm_eps)
+    x = x + a
+    h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
+    if cfg.is_moe:
+        # per-row cursors: each row dispatches alone, as each slot does in
+        # the reference's per-slot decode
+        f = MOE.moe_ffn_a2a(p.moe, h2, cfg,
+                            per_row=torch.is_tensor(cache_pos))
+    else:
+        f = _mlp(p.mlp, h2, cfg)
+    if cfg.local_global_alternate:
+        f = rmsnorm(f, p.post2, cfg.norm_eps)
+    return x + f
+
+
+def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos):
+    for i, blk in enumerate(model.blocks):
+        cache = (None if caches is None
+                 else {name: c[i] for name, c in caches.items()})
+        x = _dense_block(blk, x, cfg, positions, layer_window(cfg, i), cache,
+                         cache_pos)
+    return x
+
+
 @torch.no_grad()
-def forward(model: HybridLM, cfg: ArchConfig, tokens, *, caches=None,
-            cache_pos=None, engine: Optional[str] = None):
+def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
+            caches=None, cache_pos=None, engine: Optional[str] = None):
     """Returns (logits, caches).
 
-    tokens: (B, S) integer.  caches + cache_pos (an int or a (B,) tensor of
-    per-row cursors) → decode mode, one token per row (S == 1), caches
-    updated in place.  ``engine`` picks the Mamba2 scan of the
-    full-sequence path (None: the CUDA kernel on a CUDA model, the chunked
-    torch path on the CPU).
+    tokens: (B, S) integer.  prefix_embeds: (B, P, d) stub modality
+    embeddings put before the token embeddings (vlm).  caches + cache_pos
+    (an int or a (B,) tensor of per-row cursors) → decode or
+    prefill-with-cache mode, caches updated in place (the hybrid family
+    takes one token per row).  ``engine`` picks the Mamba2 scan of the
+    hybrid family's full-sequence path (None: the CUDA kernel on a CUDA
+    model, the chunked torch path on the CPU).
     """
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     x = model.embed[tokens] * math.sqrt(cfg.d_model)
-    b, s = tokens.shape
+    if prefix_embeds is not None:
+        x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
+                       .to(x.dtype), x], 1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
     if torch.is_tensor(cache_pos):
         positions = cache_pos.reshape(-1, 1) + positions
     elif cache_pos is not None:
         positions = positions + int(cache_pos)
     positions = positions.expand(b, s)
-    x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine)
+    if cfg.family == "hybrid":
+        x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine)
+    else:
+        x = _run_decoder(model, cfg, x, positions, caches, cache_pos)
     x = rmsnorm(x, model.final_gamma, cfg.norm_eps)
-    logits = x @ model.embed.T
-    return softcap(logits.float(), cfg.final_logit_softcap), caches
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return softcap((x @ head).float(), cfg.final_logit_softcap), caches

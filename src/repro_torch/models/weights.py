@@ -1,8 +1,8 @@
 """Weights from the JAX package's parameter pytree.
 
-The reference keeps the hybrid stack's Mamba layers stacked along a
-leading layer axis (``params["blocks"]["mamba"]["in_proj"]`` is
-(n_layers, d, ·)); the port keeps one module per layer.  This maps one
+The reference stacks every block leaf along a leading layer axis
+(``params["blocks"]["attn"]["wq"]`` is (n_layers, d, ·), an MoE stack
+(n_layers, E, d, f)); the port keeps one module per layer.  This maps one
 onto the other, so both packages compute the same function on the same
 weights.
 """
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.csr import resolve_device
-from repro_torch.models.transformer import HybridLM
+from repro_torch.models.transformer import LM, model_class
 
 
 def _to_torch(tree, dev, index=None):
@@ -25,15 +25,14 @@ def _to_torch(tree, dev, index=None):
     return torch.tensor(a, device=dev)
 
 
-def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> HybridLM:
-    """The port's model holding the weights of the reference pytree
-    ``tree`` (leaves as numpy arrays or anything ``np.asarray`` takes),
-    on ``device`` (None = CUDA)."""
+def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
+    """The port's model (``transformer.model_class(cfg)``) holding the
+    weights of the reference pytree ``tree`` (leaves as numpy arrays or
+    anything ``np.asarray`` takes), ``lm_head`` included where the
+    embeddings are untied, on ``device`` (None = CUDA)."""
+    cls = model_class(cfg)
     dev = resolve_device(device)
-    blocks = tree["blocks"]
-    return HybridLM(cfg, {
-        "embed": _to_torch(tree["embed"], dev),
-        "final_gamma": _to_torch(tree["final_gamma"], dev),
-        "blocks": [_to_torch(blocks, dev, i) for i in range(cfg.n_layers)],
-        "shared": _to_torch(tree["shared"], dev),
-    })
+    return cls(cfg, {
+        key: ([_to_torch(value, dev, i) for i in range(cfg.n_layers)]
+              if key == "blocks" else _to_torch(value, dev))
+        for key, value in tree.items()})

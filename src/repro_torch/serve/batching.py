@@ -5,13 +5,13 @@ their slot, queued requests prefill into free slots.
 
 Slot isolation:
 
-  * Prefill runs on a **per-slot cache view** — ``caches[:, s:s+1]`` is a
-    view into the shared caches, so the prompt, run token by token by
-    `prefill_step`, writes that slot's entries in place and no other
-    slot's.  The view's
-    Mamba2 state and conv tail are zeroed first: unlike the KV cache they
-    are not indexed by position, so a reused slot would otherwise start
-    from the previous request's state.
+  * Prefill runs on a **per-slot cache view** — ``caches[:, s:s+1]`` of
+    every cache leaf is a view into the shared caches, so the prompt, run
+    token by token by `prefill_step` as the JAX batcher runs it, writes
+    that slot's entries in place and no other slot's.  The view's leaves
+    that are not indexed by position (the Mamba2 state and conv tail) are
+    zeroed first, so a reused slot does not start from the previous
+    request's state.
   * Decode is **one batched step with per-row cursors**: every slot
     attends and writes at its *own* position (per-row RoPE positions,
     causal masks and cache writes).  Free slots decode inertly at cursor
@@ -36,6 +36,16 @@ from repro_torch.models import transformer as T
 from repro_torch.obs.live import NULL_TELEMETRY
 from repro_torch.serve.serve_step import (decode_step, greedy_token,
                                          prefill_step)
+
+
+#: Cache leaves not indexed by position: a reused slot zeroes them.
+UNPOSITIONED = ("ssm", "conv")
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 @dataclasses.dataclass
@@ -69,9 +79,7 @@ class ContinuousBatcher:
     # -- slot cache views ----------------------------------------------------
     def _slot_view(self, s: int) -> dict:
         """Views of slot ``s``'s cache entries (writes land in place)."""
-        c = self.caches
-        return {"attn": {k: v[:, s:s + 1] for k, v in c["attn"].items()},
-                "ssm": c["ssm"][:, s:s + 1], "conv": c["conv"][:, s:s + 1]}
+        return _map_leaves(lambda c: c[:, s:s + 1], self.caches)
 
     def _free_slot(self, s: int) -> None:
         self.slot_req[s] = None
@@ -97,11 +105,13 @@ class ContinuousBatcher:
                 tele.started(req.rid, s, len(req.prompt),
                              active=len(self.active_slots()) + 1)
                 view = self._slot_view(s)
-                view["ssm"].zero_()
-                view["conv"].zero_()
+                for name in UNPOSITIONED:
+                    if name in view:
+                        view[name].zero_()
                 toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                        device=self.device)
-                lg, _ = prefill_step(self.model, self.cfg, toks[None], view)
+                lg, _ = prefill_step(self.model, self.cfg, toks[None], view,
+                                     stepwise=True)
                 tele.prefilled(req.rid, s, len(req.prompt))
                 req.logits = lg[0]
                 first = int(lg[0].argmax())

@@ -14,19 +14,28 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 
 
-def prefill_step(model, cfg: ArchConfig, tokens, caches):
+def prefill_step(model, cfg: ArchConfig, tokens, caches,
+                 stepwise: bool = False):
     """Fill the caches with the prompt ``tokens`` (B, L) from position 0;
     returns (last_token_logits, caches).
 
-    The prompt runs one token at a time: the Mamba2 mixer's state path
-    takes one step per call (the reference's full-sequence prefill on the
-    hybrid family reads only step 0 of the prompt's state inputs)."""
+    Families whose caches are indexed only by position run the prompt as
+    one full-sequence forward at ``cache_pos=0``, as the reference does.
+    The hybrid family, or any family when ``stepwise``, runs it one token
+    at a time: the Mamba2 mixer's state path takes one step per call (the
+    reference's full-sequence prefill on the hybrid family reads only
+    step 0 of the prompt's state inputs), and the JAX batcher prefills
+    every family token by token."""
     rec = obs.current()
     with rec.span("serve/prefill_step",
                   tokens=int(tokens.shape[0] * tokens.shape[1])):
-        for t in range(tokens.shape[1]):
-            logits, caches = T.forward(model, cfg, tokens[:, t:t + 1],
-                                       caches=caches, cache_pos=t)
+        if stepwise or cfg.family == "hybrid":
+            for t in range(tokens.shape[1]):
+                logits, caches = T.forward(model, cfg, tokens[:, t:t + 1],
+                                           caches=caches, cache_pos=t)
+        else:
+            logits, caches = T.forward(model, cfg, tokens, caches=caches,
+                                       cache_pos=0)
     return logits[:, -1], caches
 
 

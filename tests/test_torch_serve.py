@@ -1,6 +1,7 @@
-"""Port parity for the serve stack on the hybrid (zamba2) model at the
-reduced config: greedy outputs of the port's continuous batcher equal the
-JAX batcher's on the same weights, slot isolation (batched equals solo,
+"""Port parity for the serve stack at the reduced configs: on the hybrid
+(zamba2), and on the dense (minicpm) and MoE (llama4-scout, deepseek-v2)
+decoders, greedy outputs of the port's continuous batcher equal the JAX
+batcher's on the same weights, slot isolation (batched equals solo,
 including reused slots), and the budget and capacity edges of
 tests/test_train_serve.py."""
 import numpy as np
@@ -132,3 +133,59 @@ def test_greedy_and_sampled_tokens():
     a = greedy_token(logits, 1.0, generator=g1)
     assert a.dtype == torch.int32 and torch.equal(
         a, greedy_token(logits, 1.0, generator=g2))
+
+
+# -- the dense and MoE families (position-indexed caches) -------------------
+
+DECODERS = ["minicpm_2b", "llama4_scout_17b_a16e", "deepseek_v2_236b"]
+
+
+def _decoder(arch):
+    """Reduced config, its reference twin, the reference's weights
+    (PRNGKey 0, as tests/test_train_serve.py) and the port holding them."""
+    cfg, rcfg = get_config(arch).reduced(), r_get_config(arch).reduced()
+    jp = rT.init_params(rcfg, jax.random.PRNGKey(0))
+    return cfg, rcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                          device="cpu")
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decoder_batcher_matches_jax_batcher(arch):
+    """Three slots for five prompts (slots are reused: the caches are
+    indexed by position, so nothing carries over): greedy outputs equal
+    the JAX batcher's, the MoE families' included (the port's batched
+    decode dispatches each slot alone, as the JAX batcher's per-slot
+    decode does), and each prefill's last-position logits agree with the
+    JAX batcher's token-by-token prefill within 1e-4 of max |logits|."""
+    cfg, rcfg, jp, model = _decoder(arch)
+    want = rB.serve_requests(jp, rcfg, PROMPTS, batch_slots=3, max_len=32,
+                             max_new=6)
+    got = tB.serve_requests(model, cfg, PROMPTS, batch_slots=3, max_len=32,
+                            max_new=6)
+    assert all(r.done for r in got)
+    assert [r.out for r in got] == [r.out for r in want]
+    for r, prompt in zip(got, PROMPTS):
+        view = rT.init_caches(rcfg, 1, 32)
+        for t, tok in enumerate(prompt):
+            lg, view = rB._step1(jp, rcfg, jnp.full((1, 1), tok, jnp.int32),
+                                 view, jnp.int32(t))
+        ref = np.asarray(lg[0])
+        err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
+        assert err < 1e-4, (r.rid, err)
+
+
+def test_decoder_slot_isolation_matches_solo():
+    """minicpm: batched equals solo, in fresh and reused slots, and each
+    prefill ends at the full forward's last-position logits (2e-3)."""
+    cfg, _, _, model = _decoder("minicpm_2b")
+    stream = [(0, [1, 2, 3], 2), (0, [4, 5], 5), (1, [6, 7, 8], 3),
+              (4, [9, 1], 4), (6, [2, 2, 2, 2], 2)]
+    reqs = tB.serve_stream(model, cfg, stream, batch_slots=2, max_len=32)
+    for r, (_, p, mn) in zip(reqs, stream):
+        (solo,) = tB.serve_requests(model, cfg, [p], batch_slots=1,
+                                    max_len=32, max_new=mn)
+        assert r.done and r.out == solo.out, r.rid
+        full, _ = tT.forward(model, cfg, torch.tensor([p]))
+        want = full[0, -1]
+        assert float((r.logits - want).abs().max()
+                     / want.abs().max()) < 2e-3, r.rid
