@@ -15,8 +15,9 @@ parhyp, the distributed edge partition, the island ring) on a world of
 one, through an NCCL process group where a mesh is asked for, then the
 attention decoders at their published widths (minicpm-2B whole and
 served, llama4-scout's MoE with expert placement by kaffpa, deepseek-v2's
-MLA), and prints what it measured.  Any failure exits non-zero before the
-result line.
+MLA), rwkv6-7B (forward, O(1)-state decode, served) and whisper-medium
+(encoder and cross-attention), and prints what it measured.  Any failure
+exits non-zero before the result line.
 Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
@@ -239,7 +240,37 @@ Phases:
     parameters): the forward at B = 1, L = 1024; at capacity factor 8 a
     48-token ``prefill_step`` and 16 absorbed one-token decode steps
     within 2e-3 of the forward; the cache bytes per token.
+40. rwkv6-7B, the published config (32 layers, d_model 4096, 64 heads of
+    64, d_ff 14336, vocab 65536, tied; 7,266,111,488 f32 parameters made
+    on the card from seed 0, counted and checked): the forward at B = 2,
+    L = 2048 (wall after a warm-up, peak memory, finite logits of shape
+    (2, 2048, 65536)); then layer 0's time mix alone on its real inputs at
+    B = 1, L = 2048, 8192 and 32768, the time per token of each (the
+    chunked WKV, a loop over chunks of 16, is linear in L).
+41. rwkv6 decode: as phase 36, with ``prefill_step`` running the 64- and
+    48-token prompts token by token (the state takes one step per call):
+    every logit row within 2e-3 of max |logits| of the forward; the host
+    ms per step beside the weight-read bound; the state's bytes per row,
+    (2·4096 + 64·64·64)·4 B per layer at any position (checked at
+    max_len 1 and 4096).
+42. rwkv6 serve: phase 37 on rwkv6-7B (a reused slot's state is zeroed
+    before its prefill).
+43. whisper-medium, the published config (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads, d_ff 4096, vocab_pad 52224, tied;
+    959,571,968 parameters from seed 0): the forward on seeded normal
+    frames (2, 1500, 1024) and 448 decoder tokens (wall after a warm-up,
+    peak memory, finite logits of shape (2, 448, 52224)); the encoder
+    alone timed beside it.
+44. whisper transcription: ``prefill_step`` of 4- and 8-token prompts,
+    each row with its own frames, at cache_pos 0 (it fills ``k``/``v``
+    and the cross-attention ``xk``/``xv``), then 16 batched
+    ``decode_step``s with per-row cursors and no frames: every step
+    within 2e-3 of the forward over that row's sequence with its frames;
+    ``xk``/``xv`` non-zero after the prefills and unchanged by decode; the
+    host ms per step beside the bound (decoder and tied-head weights plus
+    both rows' ``xk``/``xv``).
     Each model is freed before the next; each prints its peak memory.
+    No kernel runs on phases 35-44's model paths but expert placement's.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -302,13 +333,21 @@ MEM_ISLANDS, MEM_POP, MEM_GENS = 2, 2, 2
 # (236B) do not fit one 80 GB card: their depth is cut to 2 layers.  The
 # parameter counts follow the reference pytree's shapes.
 DEC_DEPTH = {"minicpm_2b": None, "llama4_scout_17b_a16e": 2,
-             "deepseek_v2_236b": 2}
+             "deepseek_v2_236b": 2, "rwkv6_7b": None, "whisper_medium": None}
 DEC_PARAMS = {"minicpm_2b": 2_725_173_504,
               "llama4_scout_17b_a16e": 6_475_146_240,
-              "deepseek_v2_236b": 8_992_814_080}
-# (B, L) of each model's full-sequence forward
+              "deepseek_v2_236b": 8_992_814_080,
+              "rwkv6_7b": 7_266_111_488, "whisper_medium": 959_571_968}
+# (B, L) of each model's full-sequence forward; whisper's 448 tokens are
+# its decoder context, beside the encoder's 1500 frames of 30 s of audio
+# (arXiv:2212.04356)
 DEC_FWD = {"minicpm_2b": (2, 2048), "llama4_scout_17b_a16e": (1, 2048),
-           "deepseek_v2_236b": (1, 1024)}
+           "deepseek_v2_236b": (1, 1024), "rwkv6_7b": (2, 2048),
+           "whisper_medium": (2, 448)}
+# phase 40: rwkv6's layer-0 time mix alone at these lengths (B = 1)
+TMIX_L = (2048, 8192, 32768)
+# phase 44: whisper's prompts, one per row, each with its own frames
+WHISPER_PROMPTS = (4, 8)
 # phase 35's online-against-dense attention check: one prompt of this length
 ONLINE_L = 4096
 # phase 36: two prompts in separate slots, then batched decode steps
@@ -2097,12 +2136,14 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def timed_forward(torch, T, model, cfg, tokens, card):
-    """A warm-up, then one full-sequence forward timed with its peak
-    memory; the logits must be finite, of shape (B, L, vocab_pad)."""
-    T.forward(model, cfg, tokens)
+def timed_forward(torch, T, model, cfg, tokens, card, **kw):
+    """A warm-up, then one full-sequence forward (``kw`` passed on)
+    timed with its peak memory; the logits must be finite, of shape (B,
+    L, vocab_pad).  Returns the wall."""
+    T.forward(model, cfg, tokens, **kw)
     torch.cuda.reset_peak_memory_stats()
-    logits, wall = timed(torch, lambda: T.forward(model, cfg, tokens)[0])
+    logits, wall = timed(torch, lambda: T.forward(model, cfg, tokens,
+                                                  **kw)[0])
     peak = torch.cuda.max_memory_allocated()
     b, l = tokens.shape
     log(f"{cfg.name} forward B={b} L={l}: wall_s={wall:.4f} "
@@ -2112,25 +2153,38 @@ def timed_forward(torch, T, model, cfg, tokens, card):
           f"{cfg.name}: logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()),
           f"{cfg.name}: non-finite logits")
-    return logits
+    return wall
 
 
 def decode_against_forward(torch, np, T, model, cfg, prompts, steps, dev,
-                           card):
+                           card, frames=None):
     """Each prompt prefilled into its own slot of one cache
-    (``prefill_step`` on the slot's view: one forward at cache_pos=0),
-    then ``steps`` batched greedy ``decode_step``s with per-row cursors;
-    each prefill's last logits and every step's against the full forward
-    over that row's sequence, within 2e-3 of max |logits| (the bound of
-    tests/test_models.py::test_decode_matches_full_forward).  Returns the
-    host-clock seconds of each decode step."""
+    (``prefill_step`` on the slot's view: one forward at cache_pos=0, or
+    token by token on the ssm family), then ``steps`` batched greedy
+    ``decode_step``s with per-row cursors; each prefill's last logits and
+    every step's against the full forward over that row's sequence,
+    within 2e-3 of max |logits| (the bound of
+    tests/test_models.py::test_decode_matches_full_forward).  ``frames``
+    (rows, F, d): each row's encoder frames, given to its prefill and its
+    forward only; the cross-attention cache must be non-zero after the
+    prefills and unchanged by the decode steps.  Returns the host-clock
+    seconds of each decode step."""
     from repro_torch.serve.serve_step import decode_step, prefill_step
     smax = max(len(p) for p in prompts) + steps
-    caches = T.init_caches(cfg, len(prompts), smax, device=dev)
+    caches = T.init_caches(cfg, len(prompts), smax, device=dev,
+                           enc_len=None if frames is None else frames.shape[1])
     first = []
     for r, p in enumerate(prompts):
         view = {k: v[:, r:r + 1] for k, v in caches.items()}
-        first.append(prefill_step(model, cfg, p[None], view)[0][0])
+        first.append(prefill_step(
+            model, cfg, p[None], view,
+            enc_frames=None if frames is None else frames[r:r + 1])[0][0])
+    if frames is not None:
+        cross = {k: caches[k].clone() for k in ("xk", "xv")}
+        check(all(bool(c[:, r].abs().amax() > 0)
+                  for c in cross.values() for r in range(len(prompts))),
+              f"{cfg.name}: a row's cross-attention cache is zero after "
+              f"its prefill")
     tok = torch.stack(first).argmax(-1)
     pos = torch.tensor([len(p) for p in prompts], device=dev)
     fed, outs, walls = [], [], []
@@ -2141,10 +2195,16 @@ def decode_against_forward(torch, np, T, model, cfg, prompts, steps, dev,
         fed.append(tok)
         outs.append(lg)
         tok, pos = lg.argmax(-1), pos + 1
+    if frames is not None:
+        check(all(torch.equal(caches[k], c) for k, c in cross.items()),
+              f"{cfg.name}: decode changed the cross-attention cache")
     worst = 0.0
     for r, p in enumerate(prompts):
         seq = torch.cat([p, torch.stack(fed)[:, r]])[None]
-        want = T.forward(model, cfg, seq)[0][0, len(p) - 1:]
+        want = T.forward(
+            model, cfg, seq,
+            enc_frames=None if frames is None else frames[r:r + 1]
+        )[0][0, len(p) - 1:]
         got = torch.stack([first[r]] + [o[r] for o in outs])
         worst = max(worst, max_rel(torch, got, want)[1])
     log(f"{cfg.name} decode: prefill of {[len(p) for p in prompts]} tokens "
@@ -2167,14 +2227,64 @@ def expert_loads(np, gates, n_experts, cap) -> list:
     return out
 
 
+def serve_phase(torch, np, T, model, cfg, dev, card) -> None:
+    """Phase 14's stream (6 requests, prompts of 16–64 tokens, 16 new
+    tokens each, arrival ticks 0–8, 4 slots, max_len 256) through
+    ``serve_stream``: wall, tokens/s, step spans; every request gives 16
+    tokens inside the vocabulary, and each batcher prefill (token by
+    token, as the JAX batcher runs it, in a fresh or a reused slot) lies
+    within 2e-3 of the forward at the prompt's last position."""
+    from repro_torch import obs
+    from repro_torch.serve.batching import serve_stream
+    rng = np.random.default_rng(2)
+    stream = [(int(rng.integers(0, 9)),
+               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
+               16) for _ in range(6)]
+    rec = obs.Recorder("serve")
+    with obs.use(rec):
+        reqs, wall = timed(torch, lambda: serve_stream(
+            model, cfg, stream, batch_slots=4, max_len=256))
+    n_new = sum(len(r.out) for r in reqs)
+    log(f"serve {cfg.name} 6 requests (prompts "
+        f"{[len(p) for _, p, _ in stream]}, arrival ticks "
+        f"{[a for a, _, _ in stream]}, 4 slots, max_len 256): wall_s="
+        f"{wall:.4f} new tokens={n_new} ({n_new / wall:.2f} tokens/s); step "
+        f"spans (host clock, count and s: prefill, and decode by batch "
+        f"rows): {json.dumps(step_spans(rec))} [{card}]")
+    for r in reqs:
+        check(r.done and len(r.out) == 16,
+              f"request {r.rid} finished with {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab_pad for t in r.out),
+              f"request {r.rid} produced a token outside the vocabulary")
+    worst = max(max_rel(torch, r.logits, T.forward(
+        model, cfg, torch.tensor([p], device=dev))[0][0, -1])[1]
+        for r, (_, p, _) in zip(reqs, stream))
+    log(f"cross-check: batcher prefill (token by token) vs the forward at "
+        f"the prompt's last position: worst rel {worst:g} (max 2e-3)")
+    check(worst <= 2e-3, f"batcher prefill and forward differ: {worst}")
+
+
+def param_bytes(model, skip: str = "") -> int:
+    """The bytes of the model's parameters, those whose name starts with
+    ``skip`` (when given) left out."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if not (skip and name.startswith(skip)))
+
+
+def log_step_bound(np, cfg, walls, n_bytes, what, card) -> None:
+    log(f"{cfg.name} decode step: host clock median "
+        f"{np.median(walls) * 1e3:.3f} ms against {what} bound "
+        f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms ({n_bytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+
+
 def minicpm_phases(torch, np, dev, card, tokens) -> None:
     """Phases 35-37: minicpm-2B's forward, decode and serve."""
-    from repro_torch import obs
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import (apply_rope, causal_mask, rmsnorm,
                                            rope_freqs)
-    from repro_torch.serve.batching import serve_stream
 
     # -- 35. minicpm-2B, the full published config ---------------------------
     cfg, model = make_decoder(torch, T, "minicpm_2b", dev, card)
@@ -2207,39 +2317,11 @@ def minicpm_phases(torch, np, dev, card, tokens) -> None:
     walls = decode_against_forward(
         torch, np, T, model, cfg, [tokens(cfg, n) for n in DEC_PROMPTS],
         DEC_STEPS, dev, card)
-    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"minicpm-2b decode step: host clock median "
-        f"{np.median(walls) * 1e3:.3f} ms against the weight-read bound "
-        f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms ({n_bytes} B at "
-        f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+    log_step_bound(np, cfg, walls, param_bytes(model), "the weight-read",
+                   card)
 
     # -- 37. minicpm serve: phase 14's stream --------------------------------
-    rng = np.random.default_rng(2)
-    stream = [(int(rng.integers(0, 9)),
-               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
-               16) for _ in range(6)]
-    rec = obs.Recorder("serve")
-    with obs.use(rec):
-        reqs, wall = timed(torch, lambda: serve_stream(
-            model, cfg, stream, batch_slots=4, max_len=256))
-    n_new = sum(len(r.out) for r in reqs)
-    log(f"serve minicpm-2b 6 requests (prompts "
-        f"{[len(p) for _, p, _ in stream]}, arrival ticks "
-        f"{[a for a, _, _ in stream]}, 4 slots, max_len 256): wall_s="
-        f"{wall:.4f} new tokens={n_new} ({n_new / wall:.2f} tokens/s); step "
-        f"spans (host clock, count and s: prefill, and decode by batch "
-        f"rows): {json.dumps(step_spans(rec))} [{card}]")
-    for r in reqs:
-        check(r.done and len(r.out) == 16,
-              f"request {r.rid} finished with {len(r.out)} tokens")
-        check(all(0 <= t < cfg.vocab_pad for t in r.out),
-              f"request {r.rid} produced a token outside the vocabulary")
-    worst = max(max_rel(torch, r.logits, T.forward(
-        model, cfg, torch.tensor([p], device=dev))[0][0, -1])[1]
-        for r, (_, p, _) in zip(reqs, stream))
-    log(f"cross-check: batcher prefill (token by token) vs the forward at "
-        f"the prompt's last position: worst rel {worst:g} (max 2e-3)")
-    check(worst <= 2e-3, f"batcher prefill and forward differ: {worst}")
+    serve_phase(torch, np, T, model, cfg, dev, card)
     log(f"minicpm-2b phases: peak memory "
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
 
@@ -2365,8 +2447,97 @@ def deepseek_phases(torch, np, dev, card, tokens) -> None:
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
 
 
+def rwkv6_phases(torch, np, dev, card, tokens) -> None:
+    """Phases 40-42: rwkv6-7B's forward and time mix, decode and serve."""
+    from repro_torch.models import rwkv6 as R6
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm
+
+    # -- 40. rwkv6-7B, the full published config -----------------------------
+    cfg, model = make_decoder(torch, T, "rwkv6_7b", dev, card)
+    timed_forward(torch, T, model, cfg, tokens(cfg, *DEC_FWD["rwkv6_7b"]),
+                  card)
+    # layer 0's time mix alone on real inputs: the chunked WKV (a loop over
+    # chunks of 16) is linear in L
+    blk = model.blocks[0]
+    per_token = {}
+    for length in TMIX_L:
+        x = rmsnorm(model.embed[tokens(cfg, 1, length)]
+                    * math.sqrt(cfg.d_model), blk.ln1, cfg.norm_eps)
+        R6.rwkv6_time_mix(blk.tmix, x, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        (y, _), wall = timed(torch, lambda: R6.rwkv6_time_mix(blk.tmix, x,
+                                                              cfg))
+        check(bool(torch.isfinite(y).all()),
+              f"rwkv6 time mix at L={length}: non-finite output")
+        per_token[length] = wall / length
+        log(f"rwkv6-7b layer 0 time mix B=1 L={length}: wall_s={wall:.4f}, "
+            f"{per_token[length] * 1e6:.3f} us per token, peak memory "
+            f"{torch.cuda.max_memory_allocated()} B [{card}]")
+        del x, y
+    log(f"rwkv6-7b time mix: time per token at L={TMIX_L[-1]} over that at "
+        f"L={TMIX_L[0]}: {per_token[TMIX_L[-1]] / per_token[TMIX_L[0]]:.3f} "
+        f"(1 = linear in L)")
+
+    # -- 41. rwkv6 decode ----------------------------------------------------
+    walls = decode_against_forward(
+        torch, np, T, model, cfg, [tokens(cfg, n) for n in DEC_PROMPTS],
+        DEC_STEPS, dev, card)
+    log_step_bound(np, cfg, walls, param_bytes(model), "the weight-read",
+                   card)
+    h = cfg.d_model // cfg.ssm_head_dim
+    per_layer = (2 * cfg.d_model + h * cfg.ssm_head_dim ** 2) * 4
+    for max_len in (1, 4096):
+        row = sum(c.numel() * c.element_size() for c in
+                  T.init_caches(cfg, 1, max_len, device=dev).values())
+        check(row == per_layer * cfg.n_layers,
+              f"rwkv6 state of {row} B per row at max_len {max_len}")
+    log(f"rwkv6-7b decode state: {per_layer * cfg.n_layers} B per row at any "
+        f"position ((2 x {cfg.d_model} + {h} x {cfg.ssm_head_dim} x "
+        f"{cfg.ssm_head_dim}) x 4 B = {per_layer} B per layer x "
+        f"{cfg.n_layers} layers)")
+
+    # -- 42. rwkv6 serve: phase 14's stream ----------------------------------
+    serve_phase(torch, np, T, model, cfg, dev, card)
+    log(f"rwkv6-7b phases: peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+
+
+def whisper_phases(torch, np, dev, card, tokens, gen) -> None:
+    """Phases 43-44: whisper-medium's forward and transcription."""
+    from repro_torch.models import transformer as T
+
+    # -- 43. whisper-medium, the full published config -----------------------
+    cfg, model = make_decoder(torch, T, "whisper_medium", dev, card)
+    b, l = DEC_FWD["whisper_medium"]
+    frames = torch.randn(b, cfg.enc_positions, cfg.d_model, generator=gen,
+                         device=dev)
+    wall = timed_forward(torch, T, model, cfg, tokens(cfg, b, l), card,
+                         enc_frames=frames)
+    # the encoder alone (warm from the forward): its share of the wall
+    enc, wall_enc = timed(torch, lambda: T._run_encoder(model, cfg, frames))
+    check(bool(torch.isfinite(enc).all()), "whisper encoder: non-finite")
+    log(f"whisper-medium forward B={b} frames={cfg.enc_positions} tokens={l}: "
+        f"whole forward wall_s={wall:.4f}, the encoder alone wall_s="
+        f"{wall_enc:.4f}, the decoder and head the difference "
+        f"{wall - wall_enc:.4f} [{card}]")
+    del enc
+
+    # -- 44. whisper transcription -------------------------------------------
+    walls = decode_against_forward(
+        torch, np, T, model, cfg, [tokens(cfg, n) for n in WHISPER_PROMPTS],
+        DEC_STEPS, dev, card, frames=frames)
+    xkv = (2 * cfg.n_layers * len(WHISPER_PROMPTS) * cfg.enc_positions
+           * cfg.n_kv_heads * cfg.hd * 4)
+    log_step_bound(np, cfg, walls, param_bytes(model, skip="enc_") + xkv,
+                   f"the decoder and tied-head weights and both rows' "
+                   f"xk/xv ({xkv} B)", card)
+    log(f"whisper-medium phases: peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+
+
 def decoder_phases(torch, np, dev, card) -> dict:
-    """Phases 35-39, one model at a time (each freed before the next);
+    """Phases 35-44, one model at a time (each freed before the next);
     returns lp_affinity's launches on the expert placement path and,
     under "errors", its largest difference from the plain version on that
     path's calls."""
@@ -2380,6 +2551,10 @@ def decoder_phases(torch, np, dev, card) -> dict:
     launches, lp_err = llama4_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
     deepseek_phases(torch, np, dev, card, tokens)
+    torch.cuda.empty_cache()
+    rwkv6_phases(torch, np, dev, card, tokens)
+    torch.cuda.empty_cache()
+    whisper_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
     return {"expert_placement": launches, "errors": {"lp_affinity": lp_err}}
 

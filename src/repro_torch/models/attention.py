@@ -1,8 +1,8 @@
 """GQA attention with RoPE and a KV cache (port of
 ``repro/models/attention.py``): causal or bidirectional self-attention,
-sliding windows (gemma2's local layers) and the config's logit softcap.
-Cross-attention (``kv_override``, ``init_cross_kv``) waits for the audio
-family.
+sliding windows (gemma2's local layers), the config's logit softcap, and
+cross-attention to precomputed K/V (``kv_override``, ``init_cross_kv``:
+whisper's decoder).
 
 Every position cursor is per row: ``cache_pos`` may be a (B,) tensor, so a
 batch of slots, each at its own position, runs as one batch dimension
@@ -123,7 +123,7 @@ def cache_slots(cache_pos, b: int, s: int, smax: int, device):
 
 
 def attention(p, x, cfg, positions, *, window=None, is_causal=True,
-              cache=None, cache_pos=None):
+              cache=None, cache_pos=None, kv_override=None):
     """Returns (out, cache).  ``p`` holds wq/wk/wv/wo.
 
     positions: (S,) or per row (B, S).  window: the sliding window of a
@@ -131,18 +131,24 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
     same).  cache: dict(k=(B,Smax,KV,hd), v=…), written in place at
     ``cache_pos`` (an int or a (B,) tensor of per-row cursors; the write
     start is clamped into the cache as ``dynamic_update_slice`` clamps
-    it).
+    it).  kv_override: precomputed (k, v) of shape (B, Skv, KV, hd)
+    (cross-attention): q is not rotated, every key is attended, and no
+    cache is written.
     """
     b, s, d = x.shape
     hd = cfg.hd
     q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
-    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if kv_override is None:
+        k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+        cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        k, v = kv_override
+        is_causal = False
     q_offset = 0
-    if cache is not None:
+    if cache is not None and kv_override is None:
         q_offset, rows, cols = cache_slots(cache_pos, b, s,
                                            cache["k"].shape[1], x.device)
         cache["k"][rows, cols] = k.to(cache["k"].dtype)
@@ -159,3 +165,12 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
                         window if is_causal else None, is_causal, x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
     return out.reshape(b, s, -1) @ p.wo, cache
+
+
+def init_cross_kv(p, enc_out, cfg) -> tuple:
+    """Cross-attention K/V (B, F, KV, hd) from the encoder output (B, F,
+    d) (whisper)."""
+    b, f, _ = enc_out.shape
+    k = (enc_out @ p.wk).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p.wv).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    return k, v

@@ -39,15 +39,18 @@ def _decay_matrix(s: torch.Tensor) -> torch.Tensor:
     return torch.exp(diff)
 
 
-def _chunk_states(decay_c: torch.Tensor, summ: torch.Tensor) -> torch.Tensor:
+def chunk_states(decay_c: torch.Tensor, summ: torch.Tensor) -> torch.Tensor:
     """State entering each chunk: h_prev[c] = Σ_{c' < c} (Π decays) S_c'.
-    ``decay_c`` (..., NC), ``summ`` (..., NC, N, P) → (..., NC, N, P); a
-    loop over chunks in place of the reference's associative scan."""
+    ``summ`` (..., NC, N, P); ``decay_c`` (..., NC, N|1, 1), each chunk's
+    decay of the state's rows (one per head in Mamba2, one per channel in
+    rwkv6) → (..., NC, N, P).  A loop over chunks in place of the
+    reference's associative scan: linear in the chunk count, with no
+    log-depth factor on the (N, P) states."""
     h = torch.zeros_like(summ[..., 0, :, :])
     prev = []
     for ci in range(summ.shape[-3]):
         prev.append(h)
-        h = decay_c[..., ci, None, None] * h + summ[..., ci, :, :]
+        h = decay_c[..., ci, :, :] * h + summ[..., ci, :, :]
     return torch.stack(prev, -3)
 
 
@@ -73,7 +76,7 @@ def ssd_chunked_grouped(x, logdecay, b, c, chunk: int = 128):
     total = s[..., -1:]
     wlast = torch.exp(total - s)                               # (B,H,NC,Q)
     summ = br.transpose(-1, -2)[:, None] @ (wlast[..., None] * xr)
-    h_prev = _chunk_states(torch.exp(total[..., 0]), summ)     # (B,H,NC,N,P)
+    h_prev = chunk_states(torch.exp(total)[..., None], summ)  # (B,H,NC,N,P)
     y_inter = (cr[:, None] @ h_prev) * torch.exp(s)[..., None]
     y = (y_intra + y_inter).reshape(bsz, h, lc, p)
     return y[:, :, :l]
@@ -96,7 +99,7 @@ def ssd_chunked(x, logdecay, b, c, chunk: int = 128):
     # chunk summaries: S_c = Bᵀ diag(exp(s_Q − s)) X   (BH,NC,N,P)
     total = s[..., -1:]
     summ = br.transpose(-1, -2) @ (torch.exp(total - s)[..., None] * xr)
-    h_prev = _chunk_states(torch.exp(total[..., 0]), summ)
+    h_prev = chunk_states(torch.exp(total)[..., None], summ)
     y_inter = (cr * torch.exp(s)[..., None]) @ h_prev
     y = (y_intra + y_inter).reshape(bh, lc, p)
     return y[:, :l]

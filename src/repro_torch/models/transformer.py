@@ -10,10 +10,15 @@
   hybrid  — zamba2: a Mamba2 stack with ONE weight-shared attention+MLP
             block applied after every `attn_every` Mamba layers (its KV
             caches are per *application*)
+  ssm     — rwkv6: per layer the time mix and the channel mix
+            (``models/rwkv6.py``); the decode state (``prev``, ``wkv``,
+            ``prev_cm``) does not grow with position
+  audio   — whisper: a non-causal encoder over stub frame embeddings
+            (``enc_frames``), and decoder blocks with cross-attention to
+            its output, whose K/V are cached (``xk``/``xv``) at prefill
 
-ssm (rwkv6) and audio (whisper) raise `NotImplementedError`: they are
-ROADMAP queue 1 item 10.  Sharding constraints are the identity on one
-card, and remat waits for training.
+Sharding constraints are the identity on one card, and remat waits for
+training.
 
 ``forward`` runs with caches updated in place (the reference returns new
 caches; here the returned dict is the one passed in).
@@ -32,19 +37,12 @@ from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import (ParamTree, gelu_mlp, normal, rmsnorm,
                                        softcap, swiglu)
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name} is 'ssm' (the rwkv6 time and channel mix): not "
-            f"ported yet (ROADMAP.md queue 1 item 10)")
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name} is {cfg.family!r} (an encoder and "
-            f"cross-attention): not ported yet (ROADMAP.md queue 1 item 10)")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
                          f"attn_every={cfg.attn_every}")
@@ -70,9 +68,15 @@ def _mlp(p, x, cfg):
     return swiglu(x, p.w_gate, p.w_up, p.w_down)
 
 
-def _init_block(gen: torch.Generator, cfg, dtype, zeros) -> dict:
+def _init_block(gen: torch.Generator, cfg, dtype, zeros,
+                cross: bool = False) -> dict:
     d = cfg.d_model
     p = {"ln1": zeros(d)}
+    if cfg.family == "ssm":
+        p["tmix"] = R6.init_rwkv6(gen, cfg, dtype)
+        p["ln2"] = zeros(d)
+        p["cmix"] = R6.init_rwkv6_channel_mix(gen, cfg, dtype)
+        return p
     p["attn"] = (MLA.init_mla(gen, cfg, dtype) if cfg.is_mla
                  else A.init_attn(gen, cfg, dtype))
     p["ln2"] = zeros(d)
@@ -80,6 +84,9 @@ def _init_block(gen: torch.Generator, cfg, dtype, zeros) -> dict:
         p["moe"] = MOE.init_moe(gen, cfg, dtype)
     else:
         p["mlp"] = _init_mlp(gen, cfg, dtype)
+    if cross:                           # whisper's decoder blocks
+        p["ln_x"] = zeros(d)
+        p["xattn"] = A.init_attn(gen, cfg, dtype)
     if cfg.local_global_alternate:      # gemma2 post-norms
         p["post1"] = zeros(d)
         p["post2"] = zeros(d)
@@ -100,10 +107,11 @@ class LM(nn.Module):
             self.lm_head = _frozen(tree["lm_head"])
 
     def forward(self, tokens, caches=None, cache_pos=None,
-                engine: Optional[str] = None, prefix_embeds=None):
+                engine: Optional[str] = None, prefix_embeds=None,
+                enc_frames=None):
         return forward(self, self.cfg, tokens, caches=caches,
                        cache_pos=cache_pos, engine=engine,
-                       prefix_embeds=prefix_embeds)
+                       prefix_embeds=prefix_embeds, enc_frames=enc_frames)
 
 
 class MambaBlock(nn.Module):
@@ -129,15 +137,22 @@ class HybridLM(LM):
 
 
 class DecoderLM(LM):
-    """The dense, vlm and moe families: ``blocks`` holds one
-    attention (or MLA) + MLP (or MoE) block per layer; ``state_dict`` names
-    follow the reference pytree (``blocks.<i>.attn.wq``,
-    ``blocks.<i>.moe.w_gate`` for ``params["blocks"]["moe"]["w_gate"][i]``,
-    ``lm_head``)."""
+    """Every family but hybrid: ``blocks`` holds one block per layer, an
+    attention (or MLA) + MLP (or MoE) block, with ``ln_x`` and ``xattn``
+    where there is an encoder, or rwkv6's ``tmix`` + ``cmix``; the audio
+    family adds ``enc_blocks`` (``enc_layers`` attention + MLP blocks) and
+    ``enc_final_gamma``.  ``state_dict`` names follow the reference pytree
+    (``blocks.<i>.attn.wq``, ``blocks.<i>.moe.w_gate`` for
+    ``params["blocks"]["moe"]["w_gate"][i]``, ``blocks.<i>.tmix.wr``,
+    ``enc_blocks.<i>.mlp.w_up``, ``lm_head``)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__(cfg, tree)
         self.blocks = nn.ModuleList(ParamTree(b) for b in tree["blocks"])
+        if cfg.enc_layers:
+            self.enc_blocks = nn.ModuleList(ParamTree(b)
+                                            for b in tree["enc_blocks"])
+            self.enc_final_gamma = _frozen(tree["enc_final_gamma"])
 
 
 def model_class(cfg: ArchConfig) -> type:
@@ -168,18 +183,28 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
         tree["shared"] = {"ln1": zeros(d), "attn": A.init_attn(gen, cfg, dtype),
                           "ln2": zeros(d), "mlp": _init_mlp(gen, cfg, dtype)}
     else:
-        tree["blocks"] = [_init_block(gen, cfg, dtype, zeros)
+        tree["blocks"] = [_init_block(gen, cfg, dtype, zeros,
+                                      cross=cfg.enc_layers > 0)
                           for _ in range(cfg.n_layers)]
+    if cfg.enc_layers:
+        tree["enc_blocks"] = [_init_block(gen, cfg, dtype, zeros)
+                              for _ in range(cfg.enc_layers)]
+        tree["enc_final_gamma"] = zeros(d)
     return cls(cfg, tree)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                dtype=torch.float32, device=None) -> dict:
+                dtype=torch.float32, device=None,
+                enc_len: Optional[int] = None) -> dict:
     """The reference's cache layouts.  hybrid: ``attn.k/v`` (groups, B,
     max_len, kv, hd), ``ssm`` (layers, B, nh, N, P), ``conv`` (layers, B,
-    K−1, C); MLA: ``ckv`` (layers, B, max_len, kv_lora), ``kr`` (layers,
-    B, max_len, rope_hd); otherwise ``k``/``v`` (layers, B, max_len, kv,
-    hd).  Every leaf has the batch on dim 1."""
+    K−1, C); ssm: ``prev``, ``prev_cm`` (layers, B, d) and ``wkv``
+    (layers, B, H, N, P), all f32 and independent of ``max_len``; MLA:
+    ``ckv`` (layers, B, max_len, kv_lora), ``kr`` (layers, B, max_len,
+    rope_hd); otherwise ``k``/``v`` (layers, B, max_len, kv, hd), and
+    with an encoder the cross-attention ``xk``/``xv`` (layers, B,
+    ``enc_len`` or ``cfg.enc_positions``, kv, hd), filled at prefill.
+    Every leaf has the batch on dim 1."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -196,11 +221,20 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
             "conv": zeros(cfg.n_layers, batch, cfg.ssm_conv - 1,
                           cfg.d_inner + 2 * cfg.ssm_state),
         }
+    if cfg.family == "ssm":
+        return {name: torch.stack([t] * cfg.n_layers) for name, t in
+                R6.init_rwkv6_state(cfg, batch, device=dev).items()}
     if cfg.is_mla:
         return {"ckv": zeros(cfg.n_layers, batch, max_len, cfg.kv_lora),
                 "kr": zeros(cfg.n_layers, batch, max_len, cfg.rope_head_dim)}
     kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": zeros(*kv), "v": zeros(*kv)}
+    out = {"k": zeros(*kv), "v": zeros(*kv)}
+    if cfg.enc_layers:
+        xkv = (cfg.n_layers, batch,
+               cfg.enc_positions if enc_len is None else enc_len,
+               cfg.n_kv_heads, cfg.hd)
+        out["xk"], out["xv"] = zeros(*xkv), zeros(*xkv)
+    return out
 
 
 def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
@@ -239,7 +273,27 @@ def layer_window(cfg: ArchConfig, layer: int) -> Optional[int]:
     return None
 
 
-def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
+def _rwkv_block(p, x, cfg, cache):
+    """x + time mix, then + channel mix, each on its pre-norm; a cache
+    (one layer's ``prev``/``wkv``/``prev_cm``) takes one token and is
+    updated in place."""
+    st = None if cache is None else {"prev": cache["prev"],
+                                     "wkv": cache["wkv"]}
+    t, new_t = R6.rwkv6_time_mix(p.tmix, rmsnorm(x, p.ln1, cfg.norm_eps),
+                                 cfg, st)
+    x = x + t
+    c, new_cm = R6.rwkv6_channel_mix(
+        p.cmix, rmsnorm(x, p.ln2, cfg.norm_eps),
+        None if cache is None else cache["prev_cm"])
+    if cache is not None:
+        cache["prev"].copy_(new_t["prev"])
+        cache["wkv"].copy_(new_t["wkv"])
+        cache["prev_cm"].copy_(new_cm)
+    return x + c
+
+
+def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
+                 enc_out=None):
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if cfg.is_mla:
         a, _ = MLA.mla_attention(p.attn, h, cfg, positions, cache=cache,
@@ -250,6 +304,19 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
     if cfg.local_global_alternate:
         a = rmsnorm(a, p.post1, cfg.norm_eps)
     x = x + a
+    if enc_out is not None or (cache is not None and "xk" in cache):
+        # cross-attention: K/V from the encoder's output (written to the
+        # cache when there is one), else from the cache
+        if enc_out is not None:
+            kv = A.init_cross_kv(p.xattn, enc_out, cfg)
+            if cache is not None:
+                cache["xk"].copy_(kv[0])
+                cache["xv"].copy_(kv[1])
+        else:
+            kv = (cache["xk"], cache["xv"])
+        cx, _ = A.attention(p.xattn, rmsnorm(x, p.ln_x, cfg.norm_eps), cfg,
+                            positions, kv_override=kv)
+        x = x + cx
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
     if cfg.is_moe:
         # per-row cursors: each row dispatches alone, as each slot does in
@@ -263,27 +330,50 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
     return x + f
 
 
-def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos):
+def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
+                 enc_out=None):
     for i, blk in enumerate(model.blocks):
         cache = (None if caches is None
                  else {name: c[i] for name, c in caches.items()})
-        x = _dense_block(blk, x, cfg, positions, layer_window(cfg, i), cache,
-                         cache_pos)
+        if cfg.family == "ssm":
+            x = _rwkv_block(blk, x, cfg, cache)
+        else:
+            x = _dense_block(blk, x, cfg, positions, layer_window(cfg, i),
+                             cache, cache_pos, enc_out)
     return x
+
+
+def _run_encoder(model: DecoderLM, cfg, frames):
+    """The audio encoder over stub frame embeddings (B, F, d):
+    non-causal attention + MLP blocks at RoPE positions 0..F−1, then the
+    final norm."""
+    x = frames
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    for p in model.enc_blocks:
+        a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
+                           is_causal=False)
+        x = x + a
+        x = x + _mlp(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+    return rmsnorm(x, model.enc_final_gamma, cfg.norm_eps)
 
 
 @torch.no_grad()
 def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
-            caches=None, cache_pos=None, engine: Optional[str] = None):
+            enc_frames=None, caches=None, cache_pos=None,
+            engine: Optional[str] = None):
     """Returns (logits, caches).
 
     tokens: (B, S) integer.  prefix_embeds: (B, P, d) stub modality
-    embeddings put before the token embeddings (vlm).  caches + cache_pos
-    (an int or a (B,) tensor of per-row cursors) → decode or
-    prefill-with-cache mode, caches updated in place (the hybrid family
-    takes one token per row).  ``engine`` picks the Mamba2 scan of the
-    hybrid family's full-sequence path (None: the CUDA kernel on a CUDA
-    model, the chunked torch path on the CPU).
+    embeddings put before the token embeddings (vlm).  enc_frames: (B, F,
+    d) stub audio frames: the encoder runs only when they are given (with
+    caches, its cross K/V are written to ``xk``/``xv``, whose F they must
+    match; without frames a cache's ``xk``/``xv`` are read, and with
+    neither the decoder has no cross term).  caches + cache_pos (an int or
+    a (B,) tensor of per-row cursors) → decode or prefill-with-cache mode,
+    caches updated in place (the hybrid and ssm families take one token
+    per row).  ``engine`` picks the Mamba2 scan of the hybrid family's
+    full-sequence path (None: the CUDA kernel on a CUDA model, the chunked
+    torch path on the CPU).
     """
     _require_ported(cfg)
     tokens = torch.as_tensor(tokens, device=model.embed.device)
@@ -298,10 +388,20 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     elif cache_pos is not None:
         positions = positions + int(cache_pos)
     positions = positions.expand(b, s)
+    enc_out = None
+    if cfg.enc_layers and enc_frames is not None:
+        frames = torch.as_tensor(enc_frames, device=x.device).to(x.dtype)
+        if caches is not None and caches["xk"].shape[2] != frames.shape[1]:
+            raise ValueError(
+                f"{frames.shape[1]} encoder frames for a cross-attention "
+                f"cache of {caches['xk'].shape[2]}: pass enc_len= to "
+                f"init_caches")
+        enc_out = _run_encoder(model, cfg, frames)
     if cfg.family == "hybrid":
         x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine)
     else:
-        x = _run_decoder(model, cfg, x, positions, caches, cache_pos)
+        x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
+                         enc_out)
     x = rmsnorm(x, model.final_gamma, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     return softcap((x @ head).float(), cfg.final_logit_softcap), caches

@@ -9,9 +9,13 @@ Slot isolation:
     every cache leaf is a view into the shared caches, so the prompt, run
     token by token by `prefill_step` as the JAX batcher runs it, writes
     that slot's entries in place and no other slot's.  The view's leaves
-    that are not indexed by position (the Mamba2 state and conv tail) are
-    zeroed first, so a reused slot does not start from the previous
-    request's state.
+    that are not indexed by position (the Mamba2 state and conv tail,
+    rwkv6's ``prev``, ``wkv`` and ``prev_cm``) are zeroed first, so a
+    reused slot does not start from the previous request's state.
+  * No audio: as in the JAX batcher, no request carries encoder frames,
+    so whisper's cross-attention reads the zero ``xk``/``xv`` of
+    `init_caches` and its cross term is exactly 0.  Audio is served by
+    ``prefill_step(..., enc_frames=)`` then ``decode_step``.
   * Decode is **one batched step with per-row cursors**: every slot
     attends and writes at its *own* position (per-row RoPE positions,
     causal masks and cache writes).  Free slots decode inertly at cursor
@@ -39,7 +43,7 @@ from repro_torch.serve.serve_step import (decode_step, greedy_token,
 
 
 #: Cache leaves not indexed by position: a reused slot zeroes them.
-UNPOSITIONED = ("ssm", "conv")
+UNPOSITIONED = ("ssm", "conv", "prev", "wkv", "prev_cm")
 
 
 def _map_leaves(fn, tree):

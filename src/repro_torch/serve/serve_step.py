@@ -15,38 +15,45 @@ from repro_torch.models import transformer as T
 
 
 def prefill_step(model, cfg: ArchConfig, tokens, caches,
-                 stepwise: bool = False):
+                 stepwise: bool = False, enc_frames=None):
     """Fill the caches with the prompt ``tokens`` (B, L) from position 0;
-    returns (last_token_logits, caches).
+    returns (last_token_logits, caches).  ``enc_frames`` (B, F, d): the
+    audio family's stub frames, whose encoder output fills the
+    cross-attention cache (``xk``/``xv``).
 
     Families whose caches are indexed only by position run the prompt as
     one full-sequence forward at ``cache_pos=0``, as the reference does.
-    The hybrid family, or any family when ``stepwise``, runs it one token
-    at a time: the Mamba2 mixer's state path takes one step per call (the
-    reference's full-sequence prefill on the hybrid family reads only
-    step 0 of the prompt's state inputs), and the JAX batcher prefills
-    every family token by token."""
+    The hybrid and ssm families, or any family when ``stepwise``, run it
+    one token at a time (the frames go with token 0): the Mamba2 and
+    rwkv6 mixers' state paths take one step per call (the reference's
+    full-sequence prefill on those families reads only step 0 of the
+    prompt's state inputs), and the JAX batcher prefills every family
+    token by token."""
     rec = obs.current()
     with rec.span("serve/prefill_step",
                   tokens=int(tokens.shape[0] * tokens.shape[1])):
-        if stepwise or cfg.family == "hybrid":
+        if stepwise or cfg.family in ("hybrid", "ssm"):
             for t in range(tokens.shape[1]):
-                logits, caches = T.forward(model, cfg, tokens[:, t:t + 1],
-                                           caches=caches, cache_pos=t)
+                logits, caches = T.forward(
+                    model, cfg, tokens[:, t:t + 1], caches=caches,
+                    cache_pos=t, enc_frames=enc_frames if t == 0 else None)
         else:
             logits, caches = T.forward(model, cfg, tokens, caches=caches,
-                                       cache_pos=0)
+                                       cache_pos=0, enc_frames=enc_frames)
     return logits[:, -1], caches
 
 
-def decode_step(model, cfg: ArchConfig, last_token, caches, pos):
+def decode_step(model, cfg: ArchConfig, last_token, caches, pos,
+                enc_frames=None):
     """One token in, one token out; O(cache) attention / O(1) SSM state.
     last_token: (B, 1) integer; pos: an int or a (B,) tensor of per-row
-    cursors (tokens already cached)."""
+    cursors (tokens already cached).  ``enc_frames``, where given, runs
+    the encoder again and rewrites the cross-attention cache; without
+    them the cached ``xk``/``xv`` are read."""
     rec = obs.current()
     with rec.span("serve/decode_step", batch=int(last_token.shape[0])):
         logits, caches = T.forward(model, cfg, last_token, caches=caches,
-                                   cache_pos=pos)
+                                   cache_pos=pos, enc_frames=enc_frames)
     return logits[:, -1], caches
 
 

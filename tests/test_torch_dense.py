@@ -30,7 +30,7 @@ from repro_torch.serve import serve_step as tS
 DENSE = ["minicpm_2b", "gemma2_9b", "starcoder2_15b", "mistral_large_123b",
          "internvl2_26b"]
 PORTED = DENSE + ["llama4_scout_17b_a16e", "deepseek_v2_236b",
-                  "zamba2_2p7b"]
+                  "zamba2_2p7b", "rwkv6_7b", "whisper_medium"]
 B = 2
 # forward length per arch: gemma2 runs past its reduced window of 32
 SEQ = {"gemma2_9b": 40}

@@ -2,8 +2,9 @@
 tool import neither jax nor the JAX package `repro`, so the port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
 separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
-the memetic separator), process mapping and the ILP improvement, a
-reduced zamba2 forward and one served request run with both blocked.
+the memetic separator), process mapping and the ILP improvement, reduced
+zamba2, rwkv6 and whisper forwards and one served request each run with
+both blocked.
 `core.mesh` imports ``torch.distributed`` only where a process group is
 used, so ``import repro_torch`` and the distributed programs on a world
 of one (parhip, parhyp, the distributed edge partition, a ring roll) run
@@ -40,7 +41,7 @@ def test_no_jax_or_reference_imports_in_source():
                 ("core", "kabape.py"), ("core", "mapping.py"),
                 ("core", "ilp.py"), ("launch", "topology.py"),
                 ("core", "mesh.py"), ("core", "parhip.py"),
-                ("core", "hypergraph", "dist.py")):
+                ("core", "hypergraph", "dist.py"), ("models", "rwkv6.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -116,6 +117,17 @@ def test_port_runs_with_jax_and_reference_blocked():
         (req,) = serve_requests(model, cfg, [[1, 2, 3]], batch_slots=2,
                                 max_len=16, max_new=3)
         assert req.done and len(req.out) == 3
+        for arch in ("rwkv6_7b", "whisper_medium"):
+            cfg = get_config(arch).reduced()
+            model = T.init_params(cfg, 0, device="cpu")
+            frames = (torch.ones(1, cfg.enc_positions, cfg.d_model)
+                      if cfg.enc_layers else None)
+            logits, _ = model(torch.zeros(1, 5, dtype=torch.long),
+                              enc_frames=frames)
+            assert logits.shape == (1, 5, cfg.vocab_pad)
+            (req,) = serve_requests(model, cfg, [[1, 2, 3]], batch_slots=2,
+                                    max_len=16, max_new=3)
+            assert req.done and len(req.out) == 3
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok", cut)

@@ -240,13 +240,3 @@ def test_init_params_without_device_raises_without_card():
     assert logits.shape == (1, 4, CFG.vocab_pad)
     assert torch.isfinite(logits).all()
 
-
-@pytest.mark.parametrize("arch", ["rwkv6_7b", "whisper_medium"])
-def test_other_families_are_not_ported_yet(arch):
-    """ssm (rwkv6) and audio (whisper) still raise; every other family
-    runs (tests/test_torch_dense.py::test_device_rule)."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tT.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tT.init_caches(cfg, 1, 8, device="cpu")

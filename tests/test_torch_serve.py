@@ -1,9 +1,9 @@
 """Port parity for the serve stack at the reduced configs: on the hybrid
-(zamba2), and on the dense (minicpm) and MoE (llama4-scout, deepseek-v2)
-decoders, greedy outputs of the port's continuous batcher equal the JAX
-batcher's on the same weights, slot isolation (batched equals solo,
-including reused slots), and the budget and capacity edges of
-tests/test_train_serve.py."""
+(zamba2), the dense (minicpm) and MoE (llama4-scout, deepseek-v2)
+decoders, the ssm (rwkv6) and audio (whisper) families, greedy outputs of
+the port's continuous batcher equal the JAX batcher's on the same
+weights, slot isolation (batched equals solo, including reused slots),
+and the budget and capacity edges of tests/test_train_serve.py."""
 import numpy as np
 import pytest
 import torch
@@ -34,8 +34,8 @@ def weights():
     return jp, model
 
 
-def _solo(model, prompt, max_new, max_len=32):
-    (req,) = tB.serve_requests(model, CFG, [prompt], batch_slots=1,
+def _solo(model, prompt, max_new, max_len=32, cfg=CFG):
+    (req,) = tB.serve_requests(model, cfg, [prompt], batch_slots=1,
                                max_len=max_len, max_new=max_new)
     return req.out
 
@@ -57,11 +57,7 @@ def test_serve_requests_matches_jax_batcher(weights):
     assert all(r.done for r in got)
     assert [r.out for r in got] == [r.out for r in want]
     for r, prompt in zip(got, PROMPTS):
-        view = rT.init_caches(RCFG, 1, 32)
-        for t, tok in enumerate(prompt):
-            lg, view = rB._step1(jp, RCFG, jnp.full((1, 1), tok, jnp.int32),
-                                 view, jnp.int32(t))
-        ref = np.asarray(lg[0])
+        ref = _jax_batcher_prefill(jp, RCFG, prompt)
         err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
         assert err < 1e-4, (r.rid, err)
 
@@ -76,18 +72,21 @@ def test_batcher_slot_isolation_matches_solo(weights):
         assert r.out == ref, (r.rid, r.out, ref)
 
 
-def test_reused_slot_prefill_starts_from_a_clean_state(weights):
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "rwkv6_7b"])
+def test_reused_slot_prefill_starts_from_a_clean_state(weights, arch):
     """5 requests through 2 slots: every prefill, in a fresh or a reused
     slot, ends at the full forward's last-position logits, and every
     output equals the request served alone.  (The Mamba2 state and conv
-    tail are not indexed by position, so a reused slot must reset them.)"""
-    _, model = weights
+    tail, and rwkv6's ``prev``, ``wkv`` and ``prev_cm``, are not indexed
+    by position, so a reused slot must reset them.)"""
+    cfg, model = ((CFG, weights[1]) if arch == "zamba2_2p7b"
+                  else _decoder(arch)[::3])
     stream = [(0, [1, 2, 3], 2), (0, [4, 5], 5), (1, [6, 7, 8], 3),
               (4, [9, 1], 4), (6, [2, 2, 2, 2], 2)]
-    reqs = tB.serve_stream(model, CFG, stream, batch_slots=2, max_len=32)
+    reqs = tB.serve_stream(model, cfg, stream, batch_slots=2, max_len=32)
     for r, (_, p, mn) in zip(reqs, stream):
-        assert r.done and r.out == _solo(model, p, mn), r.rid
-        full, _ = tT.forward(model, CFG, torch.tensor([p]))
+        assert r.done and r.out == _solo(model, p, mn, cfg=cfg), r.rid
+        full, _ = tT.forward(model, cfg, torch.tensor([p]))
         want = full[0, -1]
         assert float((r.logits - want).abs().max()
                      / want.abs().max()) < 2e-3, r.rid
@@ -149,6 +148,16 @@ def _decoder(arch):
                                           device="cpu")
 
 
+def _jax_batcher_prefill(jp, rcfg, prompt):
+    """The JAX batcher's prefill of ``prompt``: `_step1` token by token on
+    a fresh slot view; the last logits."""
+    view = rT.init_caches(rcfg, 1, 32)
+    for t, tok in enumerate(prompt):
+        lg, view = rB._step1(jp, rcfg, jnp.full((1, 1), tok, jnp.int32),
+                             view, jnp.int32(t))
+    return np.asarray(lg[0])
+
+
 @pytest.mark.parametrize("arch", DECODERS)
 def test_decoder_batcher_matches_jax_batcher(arch):
     """Three slots for five prompts (slots are reused: the caches are
@@ -165,11 +174,7 @@ def test_decoder_batcher_matches_jax_batcher(arch):
     assert all(r.done for r in got)
     assert [r.out for r in got] == [r.out for r in want]
     for r, prompt in zip(got, PROMPTS):
-        view = rT.init_caches(rcfg, 1, 32)
-        for t, tok in enumerate(prompt):
-            lg, view = rB._step1(jp, rcfg, jnp.full((1, 1), tok, jnp.int32),
-                                 view, jnp.int32(t))
-        ref = np.asarray(lg[0])
+        ref = _jax_batcher_prefill(jp, rcfg, prompt)
         err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
         assert err < 1e-4, (r.rid, err)
 
@@ -189,3 +194,26 @@ def test_decoder_slot_isolation_matches_solo():
         want = full[0, -1]
         assert float((r.logits - want).abs().max()
                      / want.abs().max()) < 2e-3, r.rid
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "whisper_medium"])
+def test_ssm_and_audio_batchers_match_jax_batcher(arch):
+    """One slot per prompt, every request arriving at tick 0: no slot is
+    reused or idle before its prefill, the one stream on which the JAX
+    batcher (which carries a slot's rwkv6 state over and advances idle
+    slots) and the port's (which zeroes it) agree.  Neither batcher takes
+    audio, so whisper's cross-attention reads zero K/V in both.  Greedy
+    outputs are equal, and each prefill's last-position logits agree
+    with the JAX batcher's within 1e-4 of max |logits|."""
+    cfg, rcfg, jp, model = _decoder(arch)
+    slots = len(PROMPTS)
+    want = rB.serve_requests(jp, rcfg, PROMPTS, batch_slots=slots,
+                             max_len=32, max_new=6)
+    got = tB.serve_requests(model, cfg, PROMPTS, batch_slots=slots,
+                            max_len=32, max_new=6)
+    assert all(r.done for r in got)
+    assert [r.out for r in got] == [r.out for r in want]
+    for r, prompt in zip(got, PROMPTS):
+        ref = _jax_batcher_prefill(jp, rcfg, prompt)
+        err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
+        assert err < 1e-4, (r.rid, err)
