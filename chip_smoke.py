@@ -16,8 +16,10 @@ one, through an NCCL process group where a mesh is asked for, then the
 attention decoders at their published widths (minicpm-2B whole and
 served, llama4-scout's MoE with expert placement by kaffpa, deepseek-v2's
 MLA), rwkv6-7B (forward, O(1)-state decode, served) and whisper-medium
-(encoder and cross-attention), and prints what it measured.  Any failure
-exits non-zero before the result line.
+(encoder and cross-attention), then trains minicpm-2B at full width
+(with the hybrid and ssm families and pipeline stages beside it), and
+prints what it measured.  Any failure exits non-zero before the result
+line.
 Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
@@ -271,6 +273,35 @@ Phases:
     both rows' ``xk``/``xv``).
     Each model is freed before the next; each prints its peak memory.
     No kernel runs on phases 35-44's model paths but expert placement's.
+45. minicpm-2B trains at its published config (2,725,173,504 f32
+    parameters from seed 0, counted and checked):
+    ``make_train_step(remat="full", microbatches=2)`` with AdamW/WSD on
+    ``batches`` of global batch 2 x seq_len 2048; a warm-up step, then 3
+    timed steps, each ending in a sync: loss and grad_norm per step
+    (finite), ms per step, tokens/s, peak memory, FLOP per step
+    (``train_flops``) and FLOP/s against the f32 peak; every parameter's
+    gradient non-zero after the warm-up (a graph cut by a kernel without
+    a backward would leave zeros); ``adamw_update`` alone beside its
+    byte bound; then 4 steps on one fixed batch at a constant lr 3e-4,
+    and the loss after them below the first.
+46. The train step's equivalences at full width, 2 layers deep (B = 2,
+    S = 512): the grads under remat "full" and "dots" within 1e-5 of
+    "none" (of each reference leaf's max |g|); ``microbatches=2``
+    against 1 from the same weights, loss and grads within 1e-5
+    relative; ``grad_compress=True``, one step, every int8 residual
+    non-zero; ``prefill_step`` + ``decode_step`` on the trained model
+    give logits without a graph.
+47. zamba2-2.7B at full width, 6 layers (one group plus the shared
+    block), and rwkv6-7B at full width, 2 layers, B = 1, S = 2048: a
+    warm-up and a timed train step each (finite loss, every gradient
+    non-zero: the Mamba2 and time-mix parameters included); zamba2's
+    forward under grad on ``engine="kernel"`` raises (the SSD kernel has
+    no backward) and launches nothing.
+48. ``partition_layers`` of mistral-large-123B (88 layers) into 8
+    pipeline stages on the card: equal to ``device="cpu"``, contiguous,
+    stage sizes within 1; lp_affinity's launches counted from 0 (> 0,
+    ``launches_by_path["partition_layers"]``) and each call held against
+    its plain version.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -352,6 +383,19 @@ WHISPER_PROMPTS = (4, 8)
 ONLINE_L = 4096
 # phase 36: two prompts in separate slots, then batched decode steps
 DEC_PROMPTS, DEC_STEPS = (64, 48), 16
+# phases 45-48: training.  Phase 45: minicpm-2B whole, global batch x
+# sequence (the batches' seq_len), in microbatches, a warm-up step, timed
+# steps, then steps on one fixed batch at a constant rate
+TRAIN_FWD, TRAIN_MB, TRAIN_TIMED = (2, 2048), 2, 3
+FIXED_STEPS, FIXED_LR = 4, 3e-4
+# phase 46: the equivalences at full width, 2 layers deep
+EQ_DEPTH, EQ_FWD = 2, (2, 512)
+# phase 47: the hybrid (one group of 6 Mamba layers + the shared block) and
+# ssm families at full width, cut in depth, B x L
+TRAIN_DEPTH = {"zamba2_2p7b": 6, "rwkv6_7b": 2}
+TRAIN_CUT_FWD = (1, 2048)
+# phase 48: pipeline stages of the deepest dense config
+PIPE_ARCH, PIPE_STAGES = "mistral_large_123b", 8
 
 
 class SmokeError(RuntimeError):
@@ -2536,6 +2580,246 @@ def whisper_phases(torch, np, dev, card, tokens, gen) -> None:
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
 
 
+def cut_model(torch, T, arch, n_layers, dev):
+    """The published width of ``arch`` at ``n_layers`` layers, made on the
+    card from seed 0."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return cfg, T.init_params(cfg, seed=0, device=dev)
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def check_grads(torch, model, what) -> None:
+    """Every parameter has a finite, non-zero gradient: a cut graph (a
+    result filled outside autograd) leaves zeros upstream of the cut."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool(p.grad.abs().amax() > 0)]
+    check(not bad, f"{what}: zero or non-finite gradients on {len(bad)} "
+          f"parameters, e.g. {bad[:4]}")
+
+
+def leaf_excess(torch, model, got: dict, want: dict) -> float:
+    """The largest |got − want| of any reference leaf (the port tensors
+    that stack into it, `weights.leaf_groups`) over that leaf's max
+    |want|."""
+    from repro_torch.models.weights import leaf_groups
+    worst = 0.0
+    for leaf in leaf_groups(model).values():
+        top = max(float(want[n].abs().max()) for n in leaf.names)
+        diff = max(float((got[n] - want[n]).abs().max()) for n in leaf.names)
+        worst = max(worst, diff / max(top, 1e-30))
+    return worst
+
+
+def train_flops(model, cfg, b, s) -> float:
+    """FLOP of one train step of a dense decoder under remat "full": the
+    blocks' matmuls and masked attention (the full S², below
+    ONLINE_THRESHOLD) run four times over (forward, recomputation, and
+    twice in the backward), the head's matmul three times."""
+    blocks = sum(p.numel() for n, p in model.named_parameters()
+                 if n.startswith("blocks.") and p.dim() == 2)
+    attn = 4 * b * s * s * cfg.n_heads * cfg.hd * cfg.n_layers
+    head = 2 * b * s * cfg.d_model * cfg.vocab_pad
+    return 4 * (2 * b * s * blocks + attn) + 3 * head
+
+
+def timed_steps(torch, step, model, opt, batch_fn, n):
+    """``n`` train steps, each on ``batch_fn()`` and each ending in a
+    sync; returns [(loss, grad_norm, seconds)]."""
+    out = []
+    for _ in range(n):
+        batch = batch_fn()
+        (_, _, m), wall = timed(torch, lambda: step(model, opt, batch))
+        out.append((float(m["loss"]), float(m["grad_norm"]), wall))
+    return out
+
+
+def train_phases(torch, np, dev, card) -> dict:
+    """Phases 45-48: training at full width, its equivalences, the hybrid
+    and ssm families under grad, pipeline stages on the card; returns
+    lp_affinity's launches on the partition_layers path and, under
+    "errors", the largest difference of its calls from the plain
+    version."""
+    from repro_torch import obs
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import lp_affinity
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    from repro_torch.train.data import DataConfig, batches
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.pipeline import partition_layers
+    from repro_torch.train.train_step import (init_opt_state,
+                                              make_train_step,
+                                              next_token_loss)
+
+    # -- 45. minicpm-2B trains at its published width ------------------------
+    cfg, model = make_decoder(torch, T, "minicpm_2b", dev, card)
+    b, s = TRAIN_FWD
+    data = batches(DataConfig(cfg.vocab, s, b), device=dev)
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, OptConfig(), remat="full",
+                           microbatches=TRAIN_MB)
+    warm = timed_steps(torch, step, model, opt, lambda: next(data), 1)
+    check_grads(torch, model, "minicpm-2b after the warm-up step")
+    torch.cuda.reset_peak_memory_stats()
+    runs = timed_steps(torch, step, model, opt, lambda: next(data),
+                       TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for r in warm + runs for x in r[:2]),
+          f"minicpm-2b: non-finite loss or grad_norm {warm + runs}")
+    walls = [r[2] for r in runs]
+    flops = train_flops(model, cfg, b, s)
+    med = float(np.median(walls))
+    rate = flops / med
+    log(f"minicpm-2b train step B={b} S={s} ({TRAIN_MB} microbatches, remat "
+        f"full, AdamW/WSD, f32): warm-up {warm[0][2]:.4f} s (loss "
+        f"{warm[0][0]:.4f}); timed steps (loss, grad_norm, s): "
+        f"{[tuple(round(x, 4) for x in r) for r in runs]}; median "
+        f"{med * 1e3:.1f} ms per step, {b * s / med:.1f} tokens/s, peak "
+        f"memory {peak} B ({peak / 2**30:.2f} GiB), {flops:.4g} FLOP per "
+        f"step at {rate / 1e12:.2f} TFLOP/s ({rate / PEAK_F32_PER_S:.3f} of "
+        f"the {PEAK_F32_PER_S / 1e12:.0f} TFLOP/s f32 peak) [{card}]")
+    # the update alone (one more step on the last gradients) against what
+    # it must move: each parameter, gradient and moment read once, each
+    # parameter and moment written once
+    _, upd = timed(torch, lambda: adamw_update(model, opt, OptConfig()))
+    nbytes = 7 * param_bytes(model)
+    log(f"minicpm-2b adamw_update alone: {upd * 1e3:.1f} ms against the "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.1f} ms bound ({nbytes} B at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+    # one fixed batch, a constant rate: the loss must fall
+    fixed = next(data)
+    fstep = make_train_step(cfg, OptConfig(peak_lr=FIXED_LR, warmup_steps=1),
+                            remat="full", microbatches=TRAIN_MB)
+    frun = timed_steps(torch, fstep, model, opt, lambda: fixed, FIXED_STEPS)
+    with torch.no_grad():
+        after = float(next_token_loss(model, cfg, fixed))
+    log(f"minicpm-2b on one fixed batch at lr {FIXED_LR}: step losses "
+        f"{[round(r[0], 4) for r in frun]}, then {after:.4f} [{card}]")
+    check(after < frun[0][0], f"minicpm-2b: the loss on a fixed batch did "
+          f"not fall ({frun[0][0]} -> {after})")
+    del model, opt, step, fstep, fixed
+    torch.cuda.empty_cache()
+
+    # -- 46. the train step's equivalences at full width, 2 layers deep -----
+    cfg, model = cut_model(torch, T, "minicpm_2b", EQ_DEPTH, dev)
+    b, s = EQ_FWD
+    batch = next(batches(DataConfig(cfg.vocab, s, b), device=dev))
+    model.requires_grad_(True)
+    grads = {}
+    for remat in T.REMAT:
+        model.zero_grad(set_to_none=True)
+        next_token_loss(model, cfg, batch, remat).backward()
+        grads[remat] = grads_of(model)
+    excess = {r: leaf_excess(torch, model, grads[r], grads["none"])
+              for r in ("full", "dots")}
+    log(f"minicpm-2b {EQ_DEPTH} layers B={b} S={s}: grads under remat "
+        f"full and dots vs none, worst of leaf max: {excess} (max 1e-5)")
+    check(max(excess.values()) <= 1e-5, f"remat changes the grads: {excess}")
+    del grads
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    out = {}
+    for mb in (1, 2):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        _, _, m = make_train_step(cfg, OptConfig(), microbatches=mb)(
+            model, init_opt_state(model), batch)
+        out[mb] = (float(m["loss"]), grads_of(model))
+    rel_loss = abs(out[2][0] - out[1][0]) / abs(out[1][0])
+    rel_grad = leaf_excess(torch, model, out[2][1], out[1][1])
+    log(f"microbatches 2 vs 1: loss rel {rel_loss:g}, grads worst of leaf "
+        f"max {rel_grad:g} (max 1e-5)")
+    check(rel_loss <= 1e-5 and rel_grad <= 1e-5,
+          f"microbatches change the step: {rel_loss}, {rel_grad}")
+    del out, start
+    copt = init_opt_state(model, grad_compress=True)
+    _, _, m = make_train_step(cfg, OptConfig(), grad_compress=True)(
+        model, copt, batch)
+    zero = [n for n, e in copt["err"].items() if not bool(e.abs().amax() > 0)]
+    log(f"grad_compress: loss {float(m['loss']):.4f}, int8 residuals "
+        f"non-zero on {len(copt['err']) - len(zero)} of {len(copt['err'])} "
+        f"parameters")
+    check(math.isfinite(float(m["loss"])) and not zero,
+          f"grad_compress: zero residuals on {zero[:4]}")
+    caches = T.init_caches(cfg, 1, 16, device=dev)
+    last, caches = prefill_step(model, cfg, batch["tokens"][:1, :8], caches)
+    logits, _ = decode_step(model, cfg, last.argmax(-1)[:, None], caches, 8)
+    log(f"serve on the trained model: decode logits requires_grad="
+        f"{logits.requires_grad}, finite={bool(torch.isfinite(logits).all())}")
+    check(not logits.requires_grad and not last.requires_grad,
+          "serving the trained model built a graph")
+    del model, copt, caches
+    torch.cuda.empty_cache()
+
+    # -- 47. the hybrid and ssm families train on the card ------------------
+    for arch, depth in TRAIN_DEPTH.items():
+        cfg, model = cut_model(torch, T, arch, depth, dev)
+        b, s = TRAIN_CUT_FWD
+        data = batches(DataConfig(cfg.vocab, s, b), device=dev)
+        step = make_train_step(cfg, OptConfig())
+        opt = init_opt_state(model)
+        warm = timed_steps(torch, step, model, opt, lambda: next(data), 1)
+        check_grads(torch, model, f"{cfg.name} ({depth} layers)")
+        torch.cuda.reset_peak_memory_stats()
+        (loss, gn, wall), = timed_steps(torch, step, model, opt,
+                                        lambda: next(data), 1)
+        n = sum(p.numel() for p in model.parameters())
+        log(f"{cfg.name} {depth} layers ({n} parameters) train step B={b} "
+            f"S={s} (remat full, chunked scan where there is one): warm-up "
+            f"{warm[0][2]:.4f} s, step {wall:.4f} s, loss {loss:.4f}, "
+            f"grad_norm {gn:.4f}, peak memory "
+            f"{torch.cuda.max_memory_allocated()} B [{card}]")
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"{cfg.name}: non-finite loss or grad_norm")
+        if cfg.family == "hybrid":
+            # the kernel has no backward: under grad it must refuse, and
+            # launch nothing
+            obs.metrics.reset(SSD_LAUNCHES)
+            try:
+                T.forward(model, cfg, next(data)["tokens"][:, :-1],
+                          engine="kernel")
+            except RuntimeError as e:
+                check("no backward" in str(e), f"unexpected error: {e}")
+                log(f"{cfg.name} forward under grad on the SSD kernel "
+                    f"raises: {e}")
+            else:
+                raise SmokeError("the SSD kernel ran under grad")
+            check(obs.metrics.get(SSD_LAUNCHES) == 0,
+                  "the SSD kernel launched under grad")
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+    # -- 48. pipeline stages by kaffpa on the card ---------------------------
+    pcfg = get_config(PIPE_ARCH)
+    with capturing(torch, lp_affinity, "affinity_cuda") as calls:
+        torch.cuda.synchronize()
+        obs.metrics.reset(LAUNCHES)
+        stage, wall = timed(torch, lambda: partition_layers(
+            pcfg, PIPE_STAGES, device=dev))
+        launches = int(obs.metrics.get(LAUNCHES))
+    want = partition_layers(pcfg, PIPE_STAGES, device="cpu")
+    sizes = np.bincount(stage, minlength=PIPE_STAGES)
+    log(f"partition_layers({pcfg.name}, {PIPE_STAGES}) on the card: stage "
+        f"sizes {sizes.tolist()}, wall_s={wall:.4f}, lp_affinity launches="
+        f"{launches}; equal to device='cpu': {np.array_equal(stage, want)} "
+        f"[{card}]")
+    check(np.array_equal(stage, want), "partition_layers differs by device")
+    check(bool(np.all(np.diff(stage) >= 0)) and sizes.max() - sizes.min()
+          <= 1, f"stages not contiguous or not balanced: {sizes}")
+    check(launches > 0, "partition_layers never launched lp_affinity")
+    lp_err = replay_lp(torch, calls, "partition_layers")
+    return {"partition_layers": launches, "errors": {"lp_affinity": lp_err}}
+
+
 def decoder_phases(torch, np, dev, card) -> dict:
     """Phases 35-44, one model at a time (each freed before the next);
     returns lp_affinity's launches on the expert placement path and,
@@ -2710,6 +2994,7 @@ def main() -> int:
     dpaths = distributed_phases(torch, np, dev, card, cut, kahypar_km1,
                                 ep_replication)
     dec = decoder_phases(torch, np, dev, card)
+    trn = train_phases(torch, np, dev, card)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity
@@ -2721,7 +3006,7 @@ def main() -> int:
     errs = paths["errors"]
     derrs = dpaths["errors"]
     max_err = max(max_err, errs["lp_affinity"], derrs["lp_affinity"],
-                  dec["errors"]["lp_affinity"])
+                  dec["errors"]["lp_affinity"], trn["errors"]["lp_affinity"])
     pin_row["max_abs_err"] = max(pin_row["max_abs_err"], errs["pin_count"],
                                  derrs["pin_count"])
     sep_row["max_abs_err"] = max(sep_row["max_abs_err"],
@@ -2745,7 +3030,8 @@ def main() -> int:
             "parhip_social": dpaths["parhip_social"],
             "distributed_edge_partition": dpaths[
                 "distributed_edge_partition"],
-            "expert_placement": dec["expert_placement"]}},
+            "expert_placement": dec["expert_placement"],
+            "partition_layers": trn["partition_layers"]}},
         pin_row, *ssd_rows, sep_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -140,11 +140,22 @@ def ssd_scan(x: torch.Tensor, logdecay: torch.Tensor, b: torch.Tensor,
     expanded to every head); a CUDA tensor launches the kernels on the
     un-expanded b and c, with N zero-padded to a multiple of 16 and P of 8
     (zero state rows and columns change no real output).
+
+    The kernels have no backward, nor has the JAX package's Pallas
+    kernel: on a CUDA tensor under grad mode with an input that requires
+    a gradient this raises rather than return a result cut from the
+    graph.  Training runs ``mamba2_mixer(engine="chunked")``.
     """
     l, p = x.shape[1], x.shape[2]
     if heads < 1 or x.shape[0] != b.shape[0] * heads:
         raise ValueError(f"x has {x.shape[0]} rows, b {b.shape[0]}: not "
                          f"{heads} heads per row of b")
+    if (x.device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, logdecay, b, c))):
+        raise RuntimeError(
+            "ops.ssd_scan: the SSD kernel has no backward (neither has the "
+            "JAX package's ssd_scan_pallas); train the hybrid family with "
+            "mamba2_mixer(engine='chunked')")
     x, logdecay, b, c = (pad_to(t, 1, chunk) for t in (x, logdecay, b, c))
     if x.device.type == "cpu":
         y = _ref.ssd_scan_grouped_ref(x, logdecay, b, c, heads)

@@ -86,7 +86,8 @@ class ParamTree(torch.nn.Module):
     parameter and each dict a child module, under the reference pytree's
     own keys (``p.attn.wq`` for ``params["attn"]["wq"]``), so the
     module's ``state_dict`` names follow the JAX package's parameter
-    paths.  Inference only: nothing requires a gradient."""
+    paths.  The parameters are frozen (no gradient) until a trainer turns
+    them on with ``model.requires_grad_(True)``."""
 
     def __init__(self, tree: dict):
         super().__init__()

@@ -17,19 +17,25 @@
             (``enc_frames``), and decoder blocks with cross-attention to
             its output, whose K/V are cached (``xk``/``xv``) at prefill
 
-Sharding constraints are the identity on one card, and remat waits for
-training.
+Sharding constraints are the identity on one card.  ``remat`` recomputes
+each decoder block, Mamba layer and encoder block in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
 ``forward`` runs with caches updated in place (the reference returns new
-caches; here the returned dict is the one passed in).
+caches; here the returned dict is the one passed in).  Its grad mode
+follows the caller's: parameters are frozen unless a trainer turns them
+on (``train/train_step.py``), and caches are refused while a parameter
+requires a gradient.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.csr import resolve_device
@@ -46,6 +52,34 @@ def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
                          f"attn_every={cfg.attn_every}")
+
+
+#: ``remat`` values: keep every activation, recompute the whole block, or
+#: keep only the outputs of matmuls without a batch dimension
+REMAT = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: the mirror of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``.  A
+    projection ``x @ W`` reaches ``aten.mm``; the batched matmuls of the
+    attention scores and the expert stacks (``aten.bmm``) have a batch
+    dimension, so they are recomputed as in the reference."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, x: torch.Tensor, remat: str) -> torch.Tensor:
+    """``fn(x)``, one block; under grad mode with ``remat`` "full" or
+    "dots" its activations are recomputed in the backward pass."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(x)
+    kw = ({} if remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)})
+    return ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -108,10 +142,11 @@ class LM(nn.Module):
 
     def forward(self, tokens, caches=None, cache_pos=None,
                 engine: Optional[str] = None, prefix_embeds=None,
-                enc_frames=None):
+                enc_frames=None, remat: str = "none"):
         return forward(self, self.cfg, tokens, caches=caches,
                        cache_pos=cache_pos, engine=engine,
-                       prefix_embeds=prefix_embeds, enc_frames=enc_frames)
+                       prefix_embeds=prefix_embeds, enc_frames=enc_frames,
+                       remat=remat)
 
 
 class MambaBlock(nn.Module):
@@ -237,23 +272,31 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     return out
 
 
+def _mamba_layer(blk, x, cfg, state, engine):
+    """x + mixer(rmsnorm(x, ln1)); a state (one layer's ``ssm``/``conv``)
+    takes one token and is updated in place."""
+    y, new_st = blk.mamba(rmsnorm(x, blk.ln1, cfg.norm_eps), state=state,
+                          engine=engine)
+    if new_st is not None:
+        state["ssm"].copy_(new_st["ssm"])
+        state["conv"].copy_(new_st["conv"])
+    return x + y
+
+
 def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
-                engine):
+                engine, remat):
     """Groups of `attn_every` Mamba layers, each followed by the shared
-    attention+MLP block."""
+    attention+MLP block; ``remat`` wraps each Mamba layer, as in the
+    reference."""
     every = cfg.attn_every
     sh = model.shared
     for g in range(cfg.n_layers // every):
         for i in range(g * every, (g + 1) * every):
-            blk = model.blocks[i]
             st = None if caches is None else {"ssm": caches["ssm"][i],
                                               "conv": caches["conv"][i]}
-            y, new_st = blk.mamba(rmsnorm(x, blk.ln1, cfg.norm_eps),
-                                  state=st, engine=engine)
-            if new_st is not None:
-                st["ssm"].copy_(new_st["ssm"])
-                st["conv"].copy_(new_st["conv"])
-            x = x + y
+            x = _remat(functools.partial(
+                _mamba_layer, model.blocks[i], cfg=cfg, state=st,
+                engine=engine), x, remat)
         kv = None if caches is None else {"k": caches["attn"]["k"][g],
                                           "v": caches["attn"]["v"][g]}
         a, _ = A.attention(sh.attn, rmsnorm(x, sh.ln1, cfg.norm_eps), cfg,
@@ -331,36 +374,43 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
 
 
 def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
-                 enc_out=None):
+                 enc_out=None, remat: str = "none"):
     for i, blk in enumerate(model.blocks):
         cache = (None if caches is None
                  else {name: c[i] for name, c in caches.items()})
         if cfg.family == "ssm":
-            x = _rwkv_block(blk, x, cfg, cache)
+            body = functools.partial(_rwkv_block, blk, cfg=cfg, cache=cache)
         else:
-            x = _dense_block(blk, x, cfg, positions, layer_window(cfg, i),
-                             cache, cache_pos, enc_out)
+            body = functools.partial(
+                _dense_block, blk, cfg=cfg, positions=positions,
+                window=layer_window(cfg, i), cache=cache,
+                cache_pos=cache_pos, enc_out=enc_out)
+        x = _remat(body, x, remat)
     return x
 
 
-def _run_encoder(model: DecoderLM, cfg, frames):
+def _enc_block(p, x, cfg, pos):
+    a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
+                       is_causal=False)
+    x = x + a
+    return x + _mlp(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+
+
+def _run_encoder(model: DecoderLM, cfg, frames, remat: str = "none"):
     """The audio encoder over stub frame embeddings (B, F, d):
     non-causal attention + MLP blocks at RoPE positions 0..F−1, then the
     final norm."""
     x = frames
     pos = torch.arange(frames.shape[1], device=frames.device)
     for p in model.enc_blocks:
-        a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
-                           is_causal=False)
-        x = x + a
-        x = x + _mlp(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+        x = _remat(functools.partial(_enc_block, p, cfg=cfg, pos=pos), x,
+                   remat)
     return rmsnorm(x, model.enc_final_gamma, cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
             enc_frames=None, caches=None, cache_pos=None,
-            engine: Optional[str] = None):
+            engine: Optional[str] = None, remat: str = "none"):
     """Returns (logits, caches).
 
     tokens: (B, S) integer.  prefix_embeds: (B, P, d) stub modality
@@ -373,9 +423,19 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     caches updated in place (the hybrid and ssm families take one token
     per row).  ``engine`` picks the Mamba2 scan of the hybrid family's
     full-sequence path (None: the CUDA kernel on a CUDA model, the chunked
-    torch path on the CPU).
+    torch path on the CPU; the kernel has no backward, so training passes
+    ``"chunked"``).  ``remat`` ("none", "full" or "dots", see `REMAT`)
+    recomputes each block in the backward pass.
+
+    Grad mode is the caller's; with caches it must be off unless no
+    parameter requires a gradient (serving runs under ``no_grad``).
     """
     _require_ported(cfg)
+    if (caches is not None and torch.is_grad_enabled()
+            and any(p.requires_grad for p in model.parameters())):
+        raise RuntimeError("forward with caches while grad mode is on and "
+                           "parameters require grad: training passes no "
+                           "caches, serving runs under torch.no_grad()")
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     x = model.embed[tokens] * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
@@ -396,12 +456,13 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
                 f"{frames.shape[1]} encoder frames for a cross-attention "
                 f"cache of {caches['xk'].shape[2]}: pass enc_len= to "
                 f"init_caches")
-        enc_out = _run_encoder(model, cfg, frames)
+        enc_out = _run_encoder(model, cfg, frames, remat)
     if cfg.family == "hybrid":
-        x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine)
+        x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine,
+                        remat)
     else:
         x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
-                         enc_out)
+                         enc_out, remat)
     x = rmsnorm(x, model.final_gamma, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     return softcap((x @ head).float(), cfg.final_logit_softcap), caches

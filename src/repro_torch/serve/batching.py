@@ -22,9 +22,9 @@ Slot isolation:
     0; whatever they write is reset or overwritten by the next prefill
     before it can ever be read.
 
-Everything runs on the device the model's parameters live on.  Telemetry
-is opt-in via ``telemetry=``; the default `NULL_TELEMETRY` makes every
-hook a no-op.
+Everything runs on the device the model's parameters live on, under
+``torch.no_grad()``.  Telemetry is opt-in via ``telemetry=``; the default
+`NULL_TELEMETRY` makes every hook a no-op.
 """
 from __future__ import annotations
 
@@ -94,6 +94,7 @@ class ContinuousBatcher:
     def active_slots(self) -> List[int]:
         return [s for s in range(self.b) if self.slot_req[s] is not None]
 
+    @torch.no_grad()
     def add(self, req: Request) -> bool:
         """Place ``req`` into a free slot (prefill); False when all busy."""
         if len(req.prompt) > self.max_len - 1:
@@ -131,6 +132,7 @@ class ContinuousBatcher:
                 return True
         return False
 
+    @torch.no_grad()
     def step(self, queue_depth: int = 0) -> List[Request]:
         """One decode step for every active slot; returns finished requests."""
         active = self.active_slots()

@@ -1,7 +1,9 @@
 """Serving steps: prefill + decode (port of ``repro/serve/serve_step.py``).
 
 Both steps emit an ambient-recorder span (`obs.use`); with no recorder
-installed the cost is one attribute read on the NULL singleton.
+installed the cost is one attribute read on the NULL singleton.  Both
+run under ``torch.no_grad()``: serving a model that has just trained
+builds no graph.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 
 
+@torch.no_grad()
 def prefill_step(model, cfg: ArchConfig, tokens, caches,
                  stepwise: bool = False, enc_frames=None):
     """Fill the caches with the prompt ``tokens`` (B, L) from position 0;
@@ -43,6 +46,7 @@ def prefill_step(model, cfg: ArchConfig, tokens, caches,
     return logits[:, -1], caches
 
 
+@torch.no_grad()
 def decode_step(model, cfg: ArchConfig, last_token, caches, pos,
                 enc_frames=None):
     """One token in, one token out; O(cache) attention / O(1) SSM state.

@@ -1,0 +1,130 @@
+"""Training step (port of ``repro/train/train_step.py``): next-token loss,
+grads, AdamW, with optional int8 error-feedback gradient compression and
+gradient accumulation over microbatches.
+
+The reference's step is pure (new params and optimizer state out); this
+one updates the model's parameters and the optimizer state in place, as
+the port's forward updates caches in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.weights import leaf_groups
+from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
+
+
+def next_token_loss(model, cfg: ArchConfig, batch: dict,
+                    remat: str = "full") -> torch.Tensor:
+    """batch: ``tokens`` (B, S+1) [+ ``prefix_embeds`` / ``enc_frames``
+    stubs]; the mean next-token NLL over the text positions.  The hybrid
+    family runs its chunked scan: the SSD kernel has no backward."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    kw = {}
+    if cfg.n_prefix_embeds:
+        kw["prefix_embeds"] = batch["prefix_embeds"]
+    if cfg.enc_layers:
+        kw["enc_frames"] = batch["enc_frames"]
+    if cfg.family == "hybrid":
+        kw["engine"] = "chunked"
+    logits, _ = T.forward(model, cfg, inputs, remat=remat, **kw)
+    # modality prefixes don't predict tokens: score text positions only
+    if cfg.n_prefix_embeds:
+        logits = logits[:, cfg.n_prefix_embeds:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = torch.as_tensor(labels, device=logp.device).long()
+    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+
+
+def _compress_group(gs: list, errs: list) -> tuple:
+    """int8 quantization with error feedback (1-bit-Adam style) of the
+    tensors that make one reference leaf, with ONE scale over all of
+    them, as the reference takes over the stacked leaf.  Returns the
+    dequantized gradients and the new errors."""
+    gs = [g.float() + e for g, e in zip(gs, errs)]
+    scale = torch.stack([g.abs().max() for g in gs]).max() / 127.0 + 1e-12
+    deq = [torch.clamp(torch.round(g / scale), -127, 127)
+           .to(torch.int8).float() * scale for g in gs]
+    return deq, [g - d for g, d in zip(gs, deq)]
+
+
+def _compress_int8(g: torch.Tensor, err: torch.Tensor) -> tuple:
+    """One tensor's int8 quantization with error feedback: (deq, err)."""
+    (deq,), (new_err,) = _compress_group([g], [err])
+    return deq, new_err
+
+
+@torch.no_grad()
+def compress_grads(model, err: dict) -> None:
+    """Replace every ``.grad`` by its int8 dequantization, one scale per
+    reference leaf (`weights.leaf_groups`), and write the new residuals
+    into ``err`` (keyed by parameter name), all in place."""
+    params = dict(model.named_parameters())
+    for leaf in leaf_groups(model).values():
+        deq, new = _compress_group([params[n].grad for n in leaf.names],
+                                   [err[n] for n in leaf.names])
+        for n, d, e in zip(leaf.names, deq, new):
+            params[n].grad.copy_(d)
+            err[n].copy_(e)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
+                    remat: str = "full", grad_compress: bool = False,
+                    microbatches: int = 1):
+    """Returns ``train_step(model, opt_state, batch) → (model, opt_state,
+    metrics)``, which turns on the model's gradients and updates it and
+    ``opt_state`` in place; ``metrics`` (``loss``, ``lr``,
+    ``grad_norm``) are 0-d tensors on the model's device.
+
+    ``microbatches`` > 1 splits the batch along dim 0 and accumulates one
+    backward per microbatch, scaled by 1/microbatches as the reference's
+    scan: peak activation memory shrinks, FLOPs stay.  ``grad_compress``
+    needs the ``err`` dict of ``init_opt_state(..., grad_compress=True)``.
+    """
+
+    def grads_of(model, batch):
+        """The loss, with the (accumulated) gradients left in ``.grad``."""
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        rows = batch["tokens"].shape[0]
+        if rows % microbatches:
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"{microbatches} microbatches")
+        parts = [dict(zip(batch, mb)) for mb in zip(
+            *(torch.as_tensor(v).chunk(microbatches) for v in batch.values()))]
+        lsum = 0.0
+        for mb in parts:
+            loss = next_token_loss(model, cfg, mb, remat)
+            loss.backward()
+            lsum = lsum + loss.detach()
+        if microbatches > 1:
+            for p in params:
+                p.grad.mul_(1.0 / microbatches)
+        return lsum * (1.0 / microbatches)
+
+    def train_step(model, opt_state, batch):
+        tokens = batch["tokens"]
+        with obs.current().span("train/step",
+                                tokens=int(tokens.shape[0]
+                                           * (tokens.shape[1] - 1))):
+            model.requires_grad_(True)
+            loss = grads_of(model, batch)
+            if grad_compress:
+                compress_grads(model, opt_state["err"])
+            metrics = adamw_update(model, opt_state, opt_cfg)
+            metrics["loss"] = loss
+        return model, opt_state, metrics
+
+    return train_step
+
+
+def init_opt_state(model, grad_compress: bool = False) -> dict:
+    st = adamw_init(model)
+    if grad_compress:
+        st["err"] = {n: torch.zeros_like(m) for n, m in st["mu"].items()}
+    return st

@@ -1,10 +1,10 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
-tool import neither jax nor the JAX package `repro`, so the port installs
+tools import neither jax nor the JAX package `repro`, so the port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
 separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
 the memetic separator), process mapping and the ILP improvement, reduced
-zamba2, rwkv6 and whisper forwards and one served request each run with
-both blocked.
+zamba2, rwkv6 and whisper forwards and one served request each, a train
+step, a checkpoint round trip and pipeline stages run with both blocked.
 `core.mesh` imports ``torch.distributed`` only where a process group is
 used, so ``import repro_torch`` and the distributed programs on a world
 of one (parhip, parhyp, the distributed edge partition, a ring roll) run
@@ -31,7 +31,8 @@ def _imported_roots(path):
 
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py",
+        ROOT / "tools" / "profile_torch_train.py"]
     assert len(files) > 25
     assert PORT / "core" / "hypergraph" / "refine.py" in files
     assert PORT / "core" / "nodesep" / "refine.py" in files
@@ -41,7 +42,10 @@ def test_no_jax_or_reference_imports_in_source():
                 ("core", "kabape.py"), ("core", "mapping.py"),
                 ("core", "ilp.py"), ("launch", "topology.py"),
                 ("core", "mesh.py"), ("core", "parhip.py"),
-                ("core", "hypergraph", "dist.py"), ("models", "rwkv6.py")):
+                ("core", "hypergraph", "dist.py"), ("models", "rwkv6.py"),
+                ("train", "train_step.py"), ("train", "optimizer.py"),
+                ("train", "checkpoint.py"), ("train", "data.py"),
+                ("train", "fault.py"), ("train", "pipeline.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -128,6 +132,28 @@ def test_port_runs_with_jax_and_reference_blocked():
             (req,) = serve_requests(model, cfg, [[1, 2, 3]], batch_slots=2,
                                     max_len=16, max_new=3)
             assert req.done and len(req.out) == 3
+        import tempfile
+        from repro_torch.train import checkpoint
+        from repro_torch.train.data import DataConfig, batches
+        from repro_torch.train.optimizer import OptConfig
+        from repro_torch.train.pipeline import partition_layers
+        from repro_torch.train.train_step import (init_opt_state,
+                                                  make_train_step)
+        cfg = get_config("minicpm_2b").reduced()
+        model = T.init_params(cfg, 0, device="cpu")
+        opt = init_opt_state(model, grad_compress=True)
+        step = make_train_step(cfg, OptConfig(), grad_compress=True,
+                               microbatches=2)
+        data = batches(DataConfig(cfg.vocab, 8, 2), device="cpu")
+        model, opt, m = step(model, opt, next(data))
+        assert torch.isfinite(m["loss"]) and int(opt["step"]) == 1
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save(d, 1, (model, opt))
+            fresh = T.init_params(cfg, 1, device="cpu")
+            checkpoint.restore(d, (fresh, init_opt_state(fresh, True)))
+            assert torch.equal(fresh.embed, model.embed)
+        stage = partition_layers(get_config("minicpm_2b"), 4, device="cpu")
+        assert sorted(set(stage.tolist())) == [0, 1, 2, 3]
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok", cut)
