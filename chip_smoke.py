@@ -17,7 +17,9 @@ attention decoders at their published widths (minicpm-2B whole and
 served, llama4-scout's MoE with expert placement by kaffpa, deepseek-v2's
 MLA), rwkv6-7B (forward, O(1)-state decode, served) and whisper-medium
 (encoder and cross-attention), then trains minicpm-2B at full width
-(with the hybrid and ssm families and pipeline stages beside it), and
+(with the hybrid and ssm families and pipeline stages beside it), runs
+the decoder stack under a (1, 1) NCCL mesh (the tensor-parallel code
+path at a model extent of 1) and sizes every arch's per-rank blocks, and
 prints what it measured.  Any failure exits non-zero before the result
 line.
 Phases:
@@ -302,6 +304,23 @@ Phases:
     stage sizes within 1; lp_affinity's launches counted from 0 (> 0,
     ``launches_by_path["partition_layers"]``) and each call held against
     its plain version.
+49. The collectives tensor parallelism adds, through an NCCL group of
+    one rank (as phase 31 builds it) made a (data 1, model 1) mesh by
+    ``launch.mesh.make_mesh``: ``Mesh.all_to_all`` over ``model`` and the
+    per-axis ``Mesh.all_gather`` (over ``model`` on dims 1 and 2, over
+    ``data``, over the whole mesh) keep a (1, 4096, 5120) f32 tensor;
+    the all-to-all timed; the calls counted.
+50. minicpm-2B whole and llama4-scout at 2 layers, at full width, made
+    with ``init_params(mesh=)`` on that mesh: the forward at B = 1, L =
+    2048, and a 64-token ``prefill_step`` + 16 greedy ``decode_step``s
+    (caches from ``init_caches(mesh=)``), under ``shardings.use_mesh`` of
+    the mesh, give logits bit for bit equal to the same runs without a
+    mesh.
+51. The per-rank bytes of the f32 parameters of all ten archs at their
+    published configs (shapes only, under ``FakeTensorMode``) on (data,
+    model) = (1, 4) and (2, 2): under the reference's ``param_specs``,
+    and under the port's explicit layout (the ``model`` blocks only),
+    one line each.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -2820,6 +2839,137 @@ def train_phases(torch, np, dev, card) -> dict:
     return {"partition_layers": launches, "errors": {"lp_affinity": lp_err}}
 
 
+def per_rank_bytes(np, model, cfg, axes, sizes) -> tuple:
+    """(bytes per rank under the reference's specs, bytes per rank of the
+    port's explicit layout) of ``model``'s f32 parameters on a mesh of
+    ``sizes`` over ``axes``: the specs split each dim over the product of
+    their axes' extents (rounded up, as GSPMD pads); the port splits only
+    over ``model`` and keeps, where ``model`` does not divide the KV
+    heads, the one KV head of the rank's query heads."""
+    from repro_torch.models import shardings as SH
+    ext = dict(zip(axes, sizes))
+    m = ext["model"]
+    spec_b = port_b = 0
+    for name, p in model.named_parameters():
+        spec = SH.leaf_spec(name, p.dim(), axes)
+        split = []
+        for dim, e in zip(p.shape, spec):
+            n = int(np.prod([ext[a] for a in
+                             (e if isinstance(e, tuple) else (e,))
+                             if a is not None]))
+            split.append((dim, n, e == "model"))
+        spec_b += 4 * int(np.prod([-(-dim // n) for dim, n, _ in split]))
+        if name.rsplit(".", 1)[-1] in ("wk", "wv") and cfg.n_kv_heads % m:
+            port_b += 4 * p.shape[0] * cfg.hd
+        else:
+            port_b += 4 * int(np.prod([dim // n if tp else dim
+                                       for dim, n, tp in split]))
+    return spec_b, port_b
+
+
+def mesh_phases(torch, np, dev, card) -> None:
+    """Phases 49-51: the collectives tensor parallelism adds, through an
+    NCCL group of one; minicpm-2B and llama4-scout (2 layers) under a
+    (1, 1) mesh, bit for bit equal to no mesh; the per-rank bytes of
+    the ten archs' specs on (1, 4) and (2, 2)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import obs
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, ALL_TO_ALL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(49)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        # -- 49. all_to_all and the per-axis all_gather through NCCL --------
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        counts = (ALL_REDUCE, ALL_GATHER, ALL_TO_ALL)
+        for c in counts:
+            obs.metrics.reset(c)
+        x = torch.randn(1, 4096, 5120, generator=gen, device=dev)
+        check(torch.equal(mesh.all_to_all(x, "model"), x),
+              "all_to_all over a model axis of one changed its input")
+        for axis, dim in (("model", 1), ("model", 2), ("data", 0),
+                          (None, 0)):
+            check(torch.equal(mesh.all_gather(x, axis, dim=dim), x),
+                  f"all_gather over {axis} on dim {dim} changed its input")
+        a2a_ms = cuda_ms(torch, lambda: mesh.all_to_all(x, "model"), iters=10)
+        torch.cuda.synchronize()
+        calls = {c: int(obs.metrics.get(c)) for c in counts}
+        log(f"NCCL (data 1, model 1) mesh ({dist.get_backend()}): all_to_all "
+            f"and all_gather over model (dims 1, 2), data and the whole mesh "
+            f"keep a (1, 4096, 5120) f32 input; all_to_all of it "
+            f"{a2a_ms:.4f} ms; collective calls {json.dumps(calls)} [{card}]")
+        check(calls[ALL_TO_ALL] > 0 and calls[ALL_GATHER] >= 4,
+              "the NCCL mesh issued no all_to_all or all_gather")
+
+        # -- 50. the decoder stack under a (1, 1) mesh: bit for bit ---------
+        for arch in ("minicpm_2b", "llama4_scout_17b_a16e"):
+            full = get_config(arch)
+            cfg = (dataclasses.replace(full, n_layers=DEC_DEPTH[arch])
+                   if DEC_DEPTH[arch] else full)
+            torch.cuda.empty_cache()
+            model = T.init_params(cfg, seed=0, mesh=mesh)
+            toks = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                                 device=dev)
+            prompt = toks[:, :DEC_PROMPTS[0]]
+            runs = {}
+            for name, ctx in (("none", contextlib.nullcontext()),
+                              ("mesh", SH.use_mesh(mesh))):
+                with ctx, torch.no_grad():
+                    logits = T.forward(model, cfg, toks)[0]
+                    caches = T.init_caches(
+                        cfg, 1, len(prompt[0]) + DEC_STEPS, device=dev,
+                        mesh=None if name == "none" else mesh)
+                    lg, _ = prefill_step(model, cfg, prompt, caches)
+                    steps = [lg]
+                    for i in range(DEC_STEPS):
+                        lg, _ = decode_step(model, cfg, lg.argmax(-1)[:, None],
+                                            caches, len(prompt[0]) + i)
+                        steps.append(lg)
+                runs[name] = (logits, torch.stack(steps))
+            same_fwd = torch.equal(*[runs[n][0] for n in runs])
+            same_dec = torch.equal(*[runs[n][1] for n in runs])
+            log(f"{cfg.name} ({cfg.n_layers} layers) under use_mesh of the "
+                f"NCCL (1, 1) mesh: forward B=1 L=2048 logits bit for bit "
+                f"equal to no mesh: {same_fwd}; prefill of "
+                f"{len(prompt[0])} tokens + {DEC_STEPS} decode steps: "
+                f"{same_dec} [{card}]")
+            check(same_fwd and same_dec,
+                  f"{cfg.name}: a (1, 1) mesh changed the logits")
+            del model, runs, logits, caches
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # -- 51. the per-rank bytes of the specs ---------------------------------
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        with FakeTensorMode():
+            model = T.init_params(cfg, 0, device="cpu")
+            total = 4 * sum(p.numel() for p in model.parameters())
+            rows = {}
+            for sizes in ((1, 4), (2, 2)):
+                rows[sizes] = per_rank_bytes(np, model, cfg,
+                                             ("data", "model"), sizes)
+        try:
+            SH.check_tp(cfg, 4)
+            port = "the port's model-axis blocks"
+        except NotImplementedError:
+            port = "no tensor-parallel form in the port yet; its blocks would be"
+        log(f"param_specs {cfg.name}: {total} B of f32 parameters; per rank "
+            + "; ".join(f"(data {d}, model {m}): specs {sb} B "
+                        f"({sb / 1e9:.2f} GB), {port} {pb} B "
+                        f"({pb / 1e9:.2f} GB)"
+                        for (d, m), (sb, pb) in rows.items()))
+
+
 def decoder_phases(torch, np, dev, card) -> dict:
     """Phases 35-44, one model at a time (each freed before the next);
     returns lp_affinity's launches on the expert placement path and,
@@ -2995,6 +3145,7 @@ def main() -> int:
                                 ep_replication)
     dec = decoder_phases(torch, np, dev, card)
     trn = train_phases(torch, np, dev, card)
+    mesh_phases(torch, np, dev, card)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity

@@ -15,7 +15,10 @@ The port's counterparts of the JAX package's SPMD pieces:
   * ``jax.lax.ppermute`` — `Mesh.ppermute`: point-to-point sends
     (``dist.batch_isend_irecv``).
   * the all-gather that SPMD partitioning inserts where the owned slices
-    of a vector become the replicated vector — `Mesh.all_gather`.
+    of a vector become the replicated vector — `Mesh.all_gather`, over
+    the whole mesh or one axis, along any dim.
+  * ``jax.lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=False)``
+    over one axis — `Mesh.all_to_all` (``dist.all_to_all_single``).
 
 Layout: rank r of the group sits at position ``np.unravel_index(r,
 shape)`` (row-major, as a jax ``Mesh`` over ``devices.reshape(shape)``).
@@ -30,7 +33,7 @@ is the identity, as on a 1-device jax mesh.  A mesh with a group calls
 ``torch.distributed`` for every collective, also when the group holds one
 rank: a CUDA mesh's group is NCCL and a CPU mesh's gloo, and a collective
 that fails raises.  Each collective call issued is counted in
-``obs.metrics`` (`ALL_REDUCE`, `ALL_GATHER`, `PPERMUTE`).
+``obs.metrics`` (`ALL_REDUCE`, `ALL_GATHER`, `ALL_TO_ALL`, `PPERMUTE`).
 
 ``torch.distributed`` is imported where a group is used, never when this
 module is imported.
@@ -47,6 +50,7 @@ from repro_torch.obs import metrics
 
 ALL_REDUCE = "mesh/all_reduce"
 ALL_GATHER = "mesh/all_gather"
+ALL_TO_ALL = "mesh/all_to_all"
 PPERMUTE = "mesh/ppermute"
 
 
@@ -181,17 +185,42 @@ class Mesh:
             metrics.inc(ALL_REDUCE)
         return bool(t.item())
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: Optional[str] = None,
+                   dim: int = 0) -> torch.Tensor:
         """Every rank's ``x`` (one shape on all ranks) concatenated along
-        dim 0 in rank order."""
+        ``dim`` in rank order: over the whole mesh (``axis=None``), or
+        over the ranks that differ from this one only along ``axis``."""
+        if axis is not None:
+            self._axis(axis)
         if self.group is None:
             return x
         import torch.distributed as dist
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
+        n = self.size if axis is None else self.extent(axis)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=(self.group if axis is None
+                                         else self._groups[axis]))
         metrics.inc(ALL_GATHER)
-        return torch.cat(parts)
+        return torch.cat(parts, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+        tiled=False)``: dim 0 of ``x`` (of size ``extent(axis)``) holds
+        one block per rank of the axis; block j goes to the axis's rank j,
+        and the result holds, at index i, what its rank i sent here."""
+        self._axis(axis)
+        if x.shape[0] != self.extent(axis):
+            raise ValueError(f"all_to_all over {axis!r} needs dim 0 of "
+                             f"size {self.extent(axis)}, got "
+                             f"{tuple(x.shape)}")
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._groups[axis])
+        metrics.inc(ALL_TO_ALL)
+        return out
 
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:

@@ -17,19 +17,22 @@ import math
 
 import torch
 
+from repro_torch.models import shardings as SH
 from repro_torch.models.layers import (apply_rope, causal_mask, normal,
-                                       rope_freqs, softcap)
+                                       rope_freqs, softcap, whole)
 
 
-def init_attn(gen: torch.Generator, cfg, dtype) -> dict:
+def init_attn(gen: torch.Generator, cfg, dtype, keep=whole) -> dict:
+    """The reference's draws, in its order; ``keep`` as in
+    ``moe.init_moe``, given ``attn.wq`` and so on."""
     d = cfg.d_model
     hd = cfg.hd
     s = 0.02
     return {
-        "wq": normal(gen, (d, cfg.n_heads * hd), s, dtype),
-        "wk": normal(gen, (d, cfg.n_kv_heads * hd), s, dtype),
-        "wv": normal(gen, (d, cfg.n_kv_heads * hd), s, dtype),
-        "wo": normal(gen, (cfg.n_heads * hd, d), s, dtype),
+        "wq": keep("attn.wq", normal(gen, (d, cfg.n_heads * hd), s, dtype)),
+        "wk": keep("attn.wk", normal(gen, (d, cfg.n_kv_heads * hd), s, dtype)),
+        "wv": keep("attn.wv", normal(gen, (d, cfg.n_kv_heads * hd), s, dtype)),
+        "wo": keep("attn.wo", normal(gen, (cfg.n_heads * hd, d), s, dtype)),
     }
 
 
@@ -134,13 +137,19 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
     it).  kv_override: precomputed (k, v) of shape (B, Skv, KV, hd)
     (cross-attention): q is not rotated, every key is attended, and no
     cache is written.
+
+    The head counts come from the weights' widths: under a mesh with a
+    ``model`` extent M > 1 (`models/shardings.py`), ``p`` holds the rank's
+    column blocks of wq/wk/wv (its query heads and the KV heads they
+    read) and its row block of wo, whose partial product is summed over
+    ``model``.
     """
     b, s, d = x.shape
     hd = cfg.hd
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    q = (x @ p.wq).reshape(b, s, -1, hd)
     if kv_override is None:
-        k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+        k = (x @ p.wk).reshape(b, s, -1, hd)
+        v = (x @ p.wv).reshape(b, s, -1, hd)
         cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -164,13 +173,13 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
         mask = _kv_mask(s, k.shape[1], q_offset,
                         window if is_causal else None, is_causal, x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
-    return out.reshape(b, s, -1) @ p.wo, cache
+    return SH.tp_psum(out.reshape(b, s, -1) @ p.wo), cache
 
 
 def init_cross_kv(p, enc_out, cfg) -> tuple:
     """Cross-attention K/V (B, F, KV, hd) from the encoder output (B, F,
     d) (whisper)."""
     b, f, _ = enc_out.shape
-    k = (enc_out @ p.wk).reshape(b, f, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ p.wv).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    k = (enc_out @ p.wk).reshape(b, f, -1, cfg.hd)
+    v = (enc_out @ p.wv).reshape(b, f, -1, cfg.hd)
     return k, v

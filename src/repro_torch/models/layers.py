@@ -19,6 +19,12 @@ def normal(gen: torch.Generator, shape, scale: float, dtype,
     return (t * scale).to(dtype)
 
 
+def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The default ``keep`` of the ``init_*`` functions: hold every drawn
+    tensor whole (a sharded init passes the rank's block instead)."""
+    return t
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMS norm in f32 with a zero-centred gain: x̂ · (1 + gamma)."""

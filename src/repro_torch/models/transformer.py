@@ -17,7 +17,14 @@
             (``enc_frames``), and decoder blocks with cross-attention to
             its output, whose K/V are cached (``xk``/``xv``) at prefill
 
-Sharding constraints are the identity on one card.  ``remat`` recomputes
+Under a mesh (``shardings.use_mesh``) whose ``model`` extent M > 1, the
+dense, vlm and non-MLA MoE families run tensor-parallel, Megatron-style:
+each rank holds the blocks that `shardings.tp_block` gives it (heads,
+FFN hidden and the shared expert in column / row blocks, its experts, its
+vocab rows), sums each row-parallel product over ``model``, looks up
+only its vocab rows of the embedding, and gathers the logits' vocab
+slices; the caller passes the rank's rows of the batch.  With no mesh or
+M = 1 nothing changes.  ``remat`` recomputes
 each decoder block, Mamba layer and encoder block in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
@@ -38,14 +45,15 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.csr import resolve_device
+from repro_torch.core.mesh import device_of
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
+from repro_torch.models import shardings as SH
 from repro_torch.models.layers import (ParamTree, gelu_mlp, normal, rmsnorm,
-                                       softcap, swiglu)
+                                       softcap, swiglu, whole)
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -86,24 +94,29 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _init_mlp(gen: torch.Generator, cfg, dtype) -> dict:
+def _init_mlp(gen: torch.Generator, cfg, dtype, keep=whole) -> dict:
     d, f = cfg.d_model, cfg.d_ff
+
+    def draw(name, shape):
+        return keep(f"mlp.{name}", normal(gen, shape, 0.02, dtype))
+
     if cfg.mlp_gelu:            # starcoder2: 2-matrix GELU MLP
-        return {"w_up": normal(gen, (d, f), 0.02, dtype),
-                "w_down": normal(gen, (f, d), 0.02, dtype)}
-    return {"w_gate": normal(gen, (d, f), 0.02, dtype),
-            "w_up": normal(gen, (d, f), 0.02, dtype),
-            "w_down": normal(gen, (f, d), 0.02, dtype)}
+        return {"w_up": draw("w_up", (d, f)),
+                "w_down": draw("w_down", (f, d))}
+    return {"w_gate": draw("w_gate", (d, f)), "w_up": draw("w_up", (d, f)),
+            "w_down": draw("w_down", (f, d))}
 
 
 def _mlp(p, x, cfg):
+    """The MLP; under a mesh ``p`` holds column blocks of w_gate/w_up and a
+    row block of w_down, whose partial product is summed over model."""
     if cfg.mlp_gelu:
-        return gelu_mlp(x, p.w_up, p.w_down)
-    return swiglu(x, p.w_gate, p.w_up, p.w_down)
+        return SH.tp_psum(gelu_mlp(x, p.w_up, p.w_down))
+    return SH.tp_psum(swiglu(x, p.w_gate, p.w_up, p.w_down))
 
 
 def _init_block(gen: torch.Generator, cfg, dtype, zeros,
-                cross: bool = False) -> dict:
+                cross: bool = False, keep=whole) -> dict:
     d = cfg.d_model
     p = {"ln1": zeros(d)}
     if cfg.family == "ssm":
@@ -112,15 +125,15 @@ def _init_block(gen: torch.Generator, cfg, dtype, zeros,
         p["cmix"] = R6.init_rwkv6_channel_mix(gen, cfg, dtype)
         return p
     p["attn"] = (MLA.init_mla(gen, cfg, dtype) if cfg.is_mla
-                 else A.init_attn(gen, cfg, dtype))
+                 else A.init_attn(gen, cfg, dtype, keep))
     p["ln2"] = zeros(d)
     if cfg.is_moe:
-        p["moe"] = MOE.init_moe(gen, cfg, dtype)
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, keep)
     else:
-        p["mlp"] = _init_mlp(gen, cfg, dtype)
+        p["mlp"] = _init_mlp(gen, cfg, dtype, keep)
     if cross:                           # whisper's decoder blocks
         p["ln_x"] = zeros(d)
-        p["xattn"] = A.init_attn(gen, cfg, dtype)
+        p["xattn"] = A.init_attn(gen, cfg, dtype, keep)
     if cfg.local_global_alternate:      # gemma2 post-norms
         p["post1"] = zeros(d)
         p["post2"] = zeros(d)
@@ -135,6 +148,8 @@ class LM(nn.Module):
         super().__init__()
         _require_ported(cfg)
         self.cfg = cfg
+        #: the ``model`` extent whose blocks this model holds (1: whole)
+        self.tp = 1
         self.embed = _frozen(tree["embed"])
         self.final_gamma = _frozen(tree["final_gamma"])
         if not cfg.tie_embeddings:
@@ -195,22 +210,41 @@ def model_class(cfg: ArchConfig) -> type:
     return HybridLM if cfg.family == "hybrid" else DecoderLM
 
 
+def tp_keeper(cfg: ArchConfig, mesh):
+    """``(keep, M)``: the ``keep`` that holds each drawn leaf's
+    tensor-parallel block on this rank of ``mesh`` (`shardings.tp_block`)
+    and the ``model`` extent M; raises where ``cfg`` has no
+    tensor-parallel form over M > 1."""
+    m = SH.model_extent(mesh)
+    if m == 1:
+        return whole, 1
+    SH.check_tp(cfg, m)
+    return (lambda name, t: SH.tp_block(name, t, cfg, mesh)), m
+
+
 def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
-                device=None) -> LM:
+                device=None, mesh=None) -> LM:
     """Random weights from ``seed``, drawn on ``device`` (None = CUDA;
-    raises without a card unless ``device="cpu"``)."""
+    raises without a card unless ``device="cpu"``).  With a ``mesh``
+    (on its rank's device) every leaf is still drawn whole, from the same
+    generator in the same order, and the rank keeps its tensor-parallel
+    block at once: a sharded model holds exactly the unsharded model's
+    weights, and the transient memory is one leaf."""
     cls = model_class(cfg)
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
+    keep, m = tp_keeper(cfg, mesh)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    tree = {"embed": normal(gen, (cfg.vocab_pad, d), 0.02, dtype),
+    tree = {"embed": keep("embed", normal(gen, (cfg.vocab_pad, d), 0.02,
+                                          dtype)),
             "final_gamma": zeros(d)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = normal(gen, (d, cfg.vocab_pad), 0.02, dtype)
+        tree["lm_head"] = keep("lm_head", normal(gen, (d, cfg.vocab_pad),
+                                                 0.02, dtype))
     if cfg.family == "hybrid":
         tree["blocks"] = [{"ln1": zeros(d),
                            "mamba": M2.init_mamba2(gen, cfg, dtype)}
@@ -219,18 +253,20 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
                           "ln2": zeros(d), "mlp": _init_mlp(gen, cfg, dtype)}
     else:
         tree["blocks"] = [_init_block(gen, cfg, dtype, zeros,
-                                      cross=cfg.enc_layers > 0)
+                                      cross=cfg.enc_layers > 0, keep=keep)
                           for _ in range(cfg.n_layers)]
     if cfg.enc_layers:
         tree["enc_blocks"] = [_init_block(gen, cfg, dtype, zeros)
                               for _ in range(cfg.enc_layers)]
         tree["enc_final_gamma"] = zeros(d)
-    return cls(cfg, tree)
+    model = cls(cfg, tree)
+    model.tp = m
+    return model
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None,
-                enc_len: Optional[int] = None) -> dict:
+                enc_len: Optional[int] = None, mesh=None) -> dict:
     """The reference's cache layouts.  hybrid: ``attn.k/v`` (groups, B,
     max_len, kv, hd), ``ssm`` (layers, B, nh, N, P), ``conv`` (layers, B,
     K−1, C); ssm: ``prev``, ``prev_cm`` (layers, B, d) and ``wkv``
@@ -239,9 +275,29 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     rope_hd); otherwise ``k``/``v`` (layers, B, max_len, kv, hd), and
     with an encoder the cross-attention ``xk``/``xv`` (layers, B,
     ``enc_len`` or ``cfg.enc_positions``, kv, hd), filled at prefill.
-    Every leaf has the batch on dim 1."""
+    Every leaf has the batch on dim 1.
+
+    With a ``mesh`` (on its rank's device), ``batch`` is the global batch:
+    the rank's caches hold its rows of the batch (split over every data
+    axis, as `shardings.cache_specs` places them) and, over ``model``,
+    the KV heads its query heads read (`shardings.kv_heads_local`; where
+    ``model`` does not divide them, `cache_specs` splits head_dim
+    instead).  A batch that the data axes do not divide (the
+    reference's sequence-parallel caches) raises."""
     _require_ported(cfg)
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
+    kv_heads = cfg.n_kv_heads
+    if mesh is not None:
+        m = SH.model_extent(mesh)
+        SH.check_tp(cfg, m)
+        dsz = SH.data_extent(mesh)
+        if SH.batch_axes_for(mesh, batch) != SH._fs_entry(mesh.axis_names):
+            raise NotImplementedError(
+                f"a batch of {batch} does not split over the data axes "
+                f"{SH.fsdp_axes(mesh.axis_names)} ({dsz} ranks): the "
+                f"sequence-parallel caches are queued in ROADMAP.md")
+        batch //= dsz
+        kv_heads = SH.kv_heads_local(cfg, m) if m > 1 else kv_heads
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -262,7 +318,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.is_mla:
         return {"ckv": zeros(cfg.n_layers, batch, max_len, cfg.kv_lora),
                 "kr": zeros(cfg.n_layers, batch, max_len, cfg.rope_head_dim)}
-    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kv = (cfg.n_layers, batch, max_len, kv_heads, cfg.hd)
     out = {"k": zeros(*kv), "v": zeros(*kv)}
     if cfg.enc_layers:
         xkv = (cfg.n_layers, batch,
@@ -431,16 +487,29 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     parameter requires a gradient (serving runs under ``no_grad``).
     """
     _require_ported(cfg)
-    if (caches is not None and torch.is_grad_enabled()
-            and any(p.requires_grad for p in model.parameters())):
+    grads = (torch.is_grad_enabled()
+             and any(p.requires_grad for p in model.parameters()))
+    if caches is not None and grads:
         raise RuntimeError("forward with caches while grad mode is on and "
                            "parameters require grad: training passes no "
                            "caches, serving runs under torch.no_grad()")
+    m = SH.model_extent(SH.current_mesh())
+    if m != model.tp:
+        raise ValueError(f"the model holds blocks for model={model.tp}, the "
+                         f"current mesh has model={m}")
+    if m > 1:
+        SH.check_tp(cfg, m)
+        if grads:
+            raise NotImplementedError(
+                "tensor-parallel training: the model-axis collectives have "
+                "no backward (queued in ROADMAP.md); run under "
+                "torch.no_grad() or with frozen parameters")
     tokens = torch.as_tensor(tokens, device=model.embed.device)
-    x = model.embed[tokens] * math.sqrt(cfg.d_model)
+    x = _embed(model, tokens, m) * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
         x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
                        .to(x.dtype), x], 1)
+    x = SH.constrain_residual(x)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
     if torch.is_tensor(cache_pos):
@@ -463,6 +532,20 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     else:
         x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
                          enc_out, remat)
-    x = rmsnorm(x, model.final_gamma, cfg.norm_eps)
+    x = rmsnorm(SH.constrain_residual(x), model.final_gamma, cfg.norm_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return softcap((x @ head).float(), cfg.final_logit_softcap), caches
+    logits = SH.constrain_logits(SH.tp_gather(x @ head, -1))
+    return softcap(logits.float(), cfg.final_logit_softcap), caches
+
+
+def _embed(model: LM, tokens, m: int) -> torch.Tensor:
+    """The embedding rows of ``tokens``; at a ``model`` extent m > 1 the
+    rank holds a block of vocab rows: it looks up the tokens inside it,
+    zeroes the others, and the rows are summed over model."""
+    if m == 1:
+        return model.embed[tokens]
+    v_loc = model.embed.shape[0]
+    ids = tokens - SH.current_mesh().axis_index("model") * v_loc
+    mine = (ids >= 0) & (ids < v_loc)
+    rows = model.embed[ids.clamp(0, v_loc - 1)]
+    return SH.tp_psum(torch.where(mine[..., None], rows, 0.0))

@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.csr import resolve_device
-from repro_torch.models.transformer import LM, model_class
+from repro_torch.core.mesh import device_of
+from repro_torch.models.transformer import LM, model_class, tp_keeper
 
 
 #: the port's per-layer module lists: the reference stacks each along a
@@ -65,26 +65,35 @@ def reference_tree(model: LM, tensors: Optional[dict] = None) -> dict:
     return tree
 
 
-def _to_torch(tree, dev, index=None):
+def _to_torch(tree, dev, index=None, keep=None, path=""):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, dev, index) for k, v in tree.items()}
+        return {k: _to_torch(v, dev, index, keep,
+                             f"{path}.{k}" if path else k)
+                for k, v in tree.items()}
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
-    return torch.tensor(a, device=dev)
+    t = torch.tensor(a, device=dev)
+    return t if keep is None else keep(path, t)
 
 
-def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
+def params_from_jax(tree: dict, cfg: ArchConfig, device=None,
+                    mesh=None) -> LM:
     """The port's model (``transformer.model_class(cfg)``) holding the
     weights of the reference pytree ``tree`` (leaves as numpy arrays or
     anything ``np.asarray`` takes), ``lm_head`` included where the
     embeddings are untied, on ``device`` (None = CUDA).  ``blocks`` is
     split along ``n_layers``, the encoder's ``enc_blocks`` along
-    ``enc_layers``."""
+    ``enc_layers``.  With a ``mesh`` (on its rank's device) the rank
+    keeps its tensor-parallel block of each leaf, as
+    ``transformer.init_params(..., mesh=)`` does."""
     cls = model_class(cfg)
-    dev = resolve_device(device)
+    dev = device_of(mesh, device)
+    keep, m = tp_keeper(cfg, mesh)
     depth = {"blocks": cfg.n_layers, "enc_blocks": cfg.enc_layers}
-    return cls(cfg, {
-        key: ([_to_torch(value, dev, i) for i in range(depth[key])]
-              if key in depth else _to_torch(value, dev))
+    model = cls(cfg, {
+        key: ([_to_torch(value, dev, i, keep) for i in range(depth[key])]
+              if key in depth else _to_torch(value, dev, keep=keep, path=key))
         for key, value in tree.items()})
+    model.tp = m
+    return model

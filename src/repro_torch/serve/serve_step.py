@@ -18,11 +18,14 @@ from repro_torch.models import transformer as T
 
 @torch.no_grad()
 def prefill_step(model, cfg: ArchConfig, tokens, caches,
-                 stepwise: bool = False, enc_frames=None):
+                 stepwise: bool = False, enc_frames=None,
+                 prefix_embeds=None):
     """Fill the caches with the prompt ``tokens`` (B, L) from position 0;
     returns (last_token_logits, caches).  ``enc_frames`` (B, F, d): the
     audio family's stub frames, whose encoder output fills the
-    cross-attention cache (``xk``/``xv``).
+    cross-attention cache (``xk``/``xv``).  ``prefix_embeds`` (B, P, d):
+    the vlm family's stub modality embeddings, cached at positions
+    0..P−1 before the prompt (decoding then goes on from P + L).
 
     Families whose caches are indexed only by position run the prompt as
     one full-sequence forward at ``cache_pos=0``, as the reference does.
@@ -33,16 +36,21 @@ def prefill_step(model, cfg: ArchConfig, tokens, caches,
     prompt's state inputs), and the JAX batcher prefills every family
     token by token."""
     rec = obs.current()
+    one_by_one = stepwise or cfg.family in ("hybrid", "ssm")
+    if prefix_embeds is not None and one_by_one:
+        raise ValueError("prefix_embeds go with a one-forward prefill: not "
+                         "with stepwise=True or the hybrid and ssm families")
     with rec.span("serve/prefill_step",
                   tokens=int(tokens.shape[0] * tokens.shape[1])):
-        if stepwise or cfg.family in ("hybrid", "ssm"):
+        if one_by_one:
             for t in range(tokens.shape[1]):
                 logits, caches = T.forward(
                     model, cfg, tokens[:, t:t + 1], caches=caches,
                     cache_pos=t, enc_frames=enc_frames if t == 0 else None)
         else:
             logits, caches = T.forward(model, cfg, tokens, caches=caches,
-                                       cache_pos=0, enc_frames=enc_frames)
+                                       cache_pos=0, enc_frames=enc_frames,
+                                       prefix_embeds=prefix_embeds)
     return logits[:, -1], caches
 
 

@@ -9,6 +9,8 @@ of ``repro/train/fault.py``).
   checkpoint after an (injected or real) failure, replaying the data
   stream deterministically from the restored step.  The step updates the
   model and optimizer state in place, and a restart restores into them.
+  Under a mesh (``shardings.use_mesh``) rank 0 writes the checkpoints,
+  every rank waits for it, and every rank restores.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import shardings as SH
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -48,6 +51,18 @@ def _sync(model) -> None:
     dev = next(model.parameters()).device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _save(ckpt_dir: str, step: int, state, metrics: dict) -> None:
+    """Rank 0 of the current mesh (or the only process) writes the
+    checkpoint; the other ranks wait until it is complete."""
+    mesh = SH.current_mesh()
+    if mesh is None or mesh.rank == 0:
+        ckpt.save(ckpt_dir, step, state,
+                  extra={"metrics": {k: float(v) for k, v in
+                                     metrics.items()}})
+    if mesh is not None:
+        mesh.agree(True)
 
 
 def run_resilient(train_step: Callable, model, opt_state, data_iter_fn,
@@ -84,9 +99,7 @@ def run_resilient(train_step: Callable, model, opt_state, data_iter_fn,
                     log(f"straggler at step {step}: {dt:.3f}s")
                 step += 1
                 if step % ckpt_every == 0 or step == n_steps:
-                    ckpt.save(ckpt_dir, step, (model, opt_state),
-                              extra={"metrics": {k: float(v) for k, v in
-                                                 metrics.items()}})
+                    _save(ckpt_dir, step, (model, opt_state), metrics)
                 if log:
                     log(f"step {step} loss {float(metrics['loss']):.4f}")
         except RuntimeError as e:

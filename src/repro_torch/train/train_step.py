@@ -5,6 +5,14 @@ gradient accumulation over microbatches.
 The reference's step is pure (new params and optimizer state out); this
 one updates the model's parameters and the optimizer state in place, as
 the port's forward updates caches in place.
+
+Under a mesh (``shardings.use_mesh``) whose ``model`` extent is 1, the
+step is data-parallel: each rank passes its rows of the global batch,
+and the loss and every gradient are averaged over the data axes
+(`Mesh.psum`) before the int8 compression and AdamW, so every replica
+takes the same update, and the compression sees the global gradient, as
+the reference's does under pjit.  A ``model`` extent above 1 raises in
+the forward: its collectives have no backward.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import shardings as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.weights import leaf_groups
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
@@ -72,6 +81,24 @@ def compress_grads(model, err: dict) -> None:
             err[n].copy_(e)
 
 
+@torch.no_grad()
+def average_over_data(model, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """Replace every ``.grad`` by its mean over the data axes of ``mesh``
+    (in place) and return the mean of ``loss``: the gradient and loss of
+    the global batch, when each rank holds an equal share of its rows."""
+    axes = [a for a in SH.fsdp_axes(mesh.axis_names) if mesh.extent(a) > 1]
+    if not axes:
+        return loss
+    n = SH.data_extent(mesh)
+    loss = loss.detach().clone()
+    for t in [p.grad for p in model.parameters()
+              if p.grad is not None] + [loss]:
+        for a in axes:
+            mesh.psum(t, a)
+        t.div_(n)
+    return loss
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                     remat: str = "full", grad_compress: bool = False,
                     microbatches: int = 1):
@@ -79,6 +106,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     metrics)``, which turns on the model's gradients and updates it and
     ``opt_state`` in place; ``metrics`` (``loss``, ``lr``,
     ``grad_norm``) are 0-d tensors on the model's device.
+
+    Under a mesh (module docstring) ``batch`` holds the rank's rows.
 
     ``microbatches`` > 1 splits the batch along dim 0 and accumulates one
     backward per microbatch, scaled by 1/microbatches as the reference's
@@ -114,6 +143,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                                            * (tokens.shape[1] - 1))):
             model.requires_grad_(True)
             loss = grads_of(model, batch)
+            mesh = SH.current_mesh()
+            if mesh is not None:
+                loss = average_over_data(model, loss, mesh)
             if grad_compress:
                 compress_grads(model, opt_state["err"])
             metrics = adamw_update(model, opt_state, opt_cfg)

@@ -1,5 +1,6 @@
 """Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
-tools import neither jax nor the JAX package `repro`, so the port installs
+and 4-card tools import neither jax nor the JAX package `repro`, so the
+port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
 separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
 the memetic separator), process mapping and the ILP improvement, reduced
@@ -7,8 +8,9 @@ zamba2, rwkv6 and whisper forwards and one served request each, a train
 step, a checkpoint round trip and pipeline stages run with both blocked.
 `core.mesh` imports ``torch.distributed`` only where a process group is
 used, so ``import repro_torch`` and the distributed programs on a world
-of one (parhip, parhyp, the distributed edge partition, a ring roll) run
-with it blocked too."""
+of one (parhip, parhyp, the distributed edge partition, a ring roll, a
+MoE decoder under ``shardings.use_mesh`` of a local mesh) run with it
+blocked too."""
 import ast
 import os
 import pathlib
@@ -32,7 +34,8 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py",
-        ROOT / "tools" / "profile_torch_train.py"]
+        ROOT / "tools" / "profile_torch_train.py",
+        ROOT / "tools" / "serve_torch_sharded.py"]
     assert len(files) > 25
     assert PORT / "core" / "hypergraph" / "refine.py" in files
     assert PORT / "core" / "nodesep" / "refine.py" in files
@@ -45,7 +48,9 @@ def test_no_jax_or_reference_imports_in_source():
                 ("core", "hypergraph", "dist.py"), ("models", "rwkv6.py"),
                 ("train", "train_step.py"), ("train", "optimizer.py"),
                 ("train", "checkpoint.py"), ("train", "data.py"),
-                ("train", "fault.py"), ("train", "pipeline.py")):
+                ("train", "fault.py"), ("train", "pipeline.py"),
+                ("models", "shardings.py"), ("launch", "mesh.py"),
+                ("launch", "ranks.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -210,6 +215,18 @@ def test_world_of_one_runs_without_torch_distributed():
         parts = np.arange(6, dtype=np.int32).reshape(3, 2)
         assert (memetic.ring_roll(parts, 1, mesh) == np.roll(parts, 1, 0)
                 ).all()
+        import torch
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import shardings as SH
+        from repro_torch.models import transformer as T
+        cfg = get_config("llama4_scout_17b_a16e").reduced()
+        local = Mesh.local(("data", "model"), device="cpu")
+        model = T.init_params(cfg, 0, mesh=local)
+        toks = torch.zeros(2, 8, dtype=torch.long)
+        with torch.no_grad():
+            want = T.forward(model, cfg, toks)[0]
+            with SH.use_mesh(local):
+                assert torch.equal(T.forward(model, cfg, toks)[0], want)
         print("ok", km1)
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -217,3 +217,44 @@ def test_ssm_and_audio_batchers_match_jax_batcher(arch):
         ref = _jax_batcher_prefill(jp, rcfg, prompt)
         err = np.abs(r.logits.numpy() - ref).max() / np.abs(ref).max()
         assert err < 1e-4, (r.rid, err)
+
+
+def test_prefill_step_with_prefix_embeds_matches_reference():
+    """internvl2 ``reduced()``: ``prefill_step(prefix_embeds=)`` caches the
+    8 prefix embeddings at positions 0..7 before the prompt, and two
+    ``decode_step``s from position P + L give the reference's
+    ``prefill_step``/``decode_step`` logits within 1e-4 of max |logits|;
+    a stepwise prefill with a prefix is refused."""
+    from repro.serve import serve_step as rS
+    from repro_torch.serve import serve_step as tS
+    arch = "internvl2_26b"
+    rcfg, cfg = r_get_config(arch).reduced(), get_config(arch).reduced()
+    jp = rT.init_params(rcfg, jax.random.PRNGKey(2))
+    model = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    b, n_pre, length = 2, cfg.n_prefix_embeds, 6
+    toks = rng.integers(0, cfg.vocab, (b, length + 2)).astype(np.int32)
+    prefix = (rng.standard_normal((b, n_pre, cfg.d_model)) * 0.1) \
+        .astype(np.float32)
+    smax = n_pre + length + 2
+    rl, rc = rS.prefill_step(jp, rcfg, jnp.asarray(toks[:, :length]),
+                             rT.init_caches(rcfg, b, smax),
+                             prefix_embeds=jnp.asarray(prefix))
+    caches = tT.init_caches(cfg, b, smax, device="cpu")
+    tl, caches = tS.prefill_step(model, cfg, torch.from_numpy(
+        toks[:, :length]), caches, prefix_embeds=torch.from_numpy(prefix))
+    want, got = [np.asarray(rl)], [tl.numpy()]
+    for i in range(2):
+        pos = n_pre + length + i
+        step = toks[:, length + i:length + i + 1]
+        rl, rc = rS.decode_step(jp, rcfg, jnp.asarray(step), rc, pos)
+        tl, caches = tS.decode_step(model, cfg, torch.from_numpy(step),
+                                    caches, pos)
+        want.append(np.asarray(rl))
+        got.append(tl.numpy())
+    want, got = np.stack(want), np.stack(got)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    with pytest.raises(ValueError, match="prefix_embeds"):
+        tS.prefill_step(model, cfg, torch.from_numpy(toks[:, :length]),
+                        tT.init_caches(cfg, b, smax, device="cpu"),
+                        stepwise=True, prefix_embeds=torch.from_numpy(prefix))
