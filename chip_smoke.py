@@ -19,8 +19,11 @@ MLA), rwkv6-7B (forward, O(1)-state decode, served) and whisper-medium
 (encoder and cross-attention), then trains minicpm-2B at full width
 (with the hybrid and ssm families and pipeline stages beside it), runs
 the decoder stack under a (1, 1) NCCL mesh (the tensor-parallel code
-path at a model extent of 1) and sizes every arch's per-rank blocks, and
-prints what it measured.  Any failure exits non-zero before the result
+path at a model extent of 1) and sizes every arch's per-rank blocks, then
+writes and reads the graph and partition file formats at the 1M-vertex
+mesh beside a recorded kaffpa and serves deepseek-v2 with live telemetry
+and its traffic hypergraph partitioned by kahypar, and prints what it
+measured.  Any failure exits non-zero before the result
 line.
 Phases:
 
@@ -321,6 +324,37 @@ Phases:
     model) = (1, 4) and (2, 2): under the reference's ``param_specs``,
     and under the port's explicit layout (the ``model`` blocks only),
     one line each.
+52. The file formats and the recorded kaffpa path at phase 3's graph
+    (grid2d(1024, 1024)): ``write_metis``, then ``graph2binary`` and
+    ``graph2binary_external`` (byte-identical files, each converter
+    timed), ``read_binary`` giving back ``xadj`` and ``adjncy``;
+    ``interface.kaffpa`` ECO k=16 seed 1 in turns with no recorder, with
+    ``report=`` a ``Recorder(annotate_xprof=True)`` (lp_affinity's
+    launches counted from 0, > 0 and equal to the recorder's count,
+    every distinct shape held against its plain version), with one
+    again, and with none: the same partition as each other and as phase
+    3, the four walls logged; the partition through ``write_partition`` /
+    ``read_partition`` and the binary pair; ``write_jsonl`` /
+    ``read_jsonl`` keep every event; the Chrome trace's B/E events
+    balance on every tid; inside a short torch.profiler window (kaffpa
+    on grid2d(64, 64)) the profiler's events carry the recorder's span
+    names (``multilevel``, ``refine``).
+53. (Run inside phase 39's section, on deepseek-v2's 2-layer weights.)
+    Phase 14's stream through ``serve_stream`` with
+    ``ServeTelemetry(recorder=, traffic=)`` and the gate tap
+    (``moe.observe_gates``) into a ``TrafficAccumulator(160,
+    decay=0.95)``, again with neither, and with telemetry but no tap:
+    identical tokens, the three walls; the queue,
+    prefill, decode and end-to-end p50/p95/p99 and the tokens/s of
+    ``tele.snapshot()``; in the Chrome trace the tracks ``slot 0`` …
+    ``slot 3`` and ``queue``, every request's ``req``/``prefill``/
+    ``decode`` B/E pairs nested and closed, one ``tok`` instant per token
+    after the first; the snapshot hypergraph passes ``check()`` with 160
+    vertices; ``kahypar(hg, 4, preset="eco")`` on the card (pin_count's
+    launches counted from 0, > 0, every call's inputs held against the
+    plain version) and its km1 beside the identity placement's (experts
+    40·r … 40·r+39 on shard r); after ``set_baseline()`` a second stream
+    (seed 3), then ``advise``: the drift and both gauges.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -1104,10 +1138,7 @@ def zamba2_phases(torch, np, dev, card) -> list:
         max_err[form] = max(max_err[form], y_abs)
 
     # -- 14. serving ---------------------------------------------------------
-    rng = np.random.default_rng(2)
-    stream = [(int(rng.integers(0, 9)),
-               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
-               16) for _ in range(6)]
+    stream = phase14_stream(np, cfg)
     rec = obs.Recorder("serve")
     torch.cuda.synchronize()
     obs.metrics.reset(LAUNCHES)
@@ -1504,19 +1535,20 @@ def counting(module, name, ticks):
 
 
 @contextlib.contextmanager
-def capturing(torch, module, name):
+def capturing(torch, module, name, every: bool = False):
     """Replace the kernel wrapper ``module.name`` while the block runs by
     one that keeps a copy of its inputs (passed by position, as
     ``kernels/ops.py`` passes them) at the first call of each distinct
-    shape; yields those calls by shape.  The wrapper's own launch
-    count is untouched, so the path's count stays its own."""
+    shape, or with ``every`` at every call; yields those calls.  The
+    wrapper's own launch count is untouched, so the path's count stays
+    its own."""
     real = getattr(module, name)
     calls = {}
 
     def wrapper(*args):
         out = real(*args)
-        key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                    for a in args)
+        key = len(calls) if every else tuple(
+            tuple(a.shape) if torch.is_tensor(a) else a for a in args)
         if key not in calls:
             calls[key] = tuple(a.clone() if torch.is_tensor(a) else a
                                for a in args)
@@ -2290,6 +2322,15 @@ def expert_loads(np, gates, n_experts, cap) -> list:
     return out
 
 
+def phase14_stream(np, cfg, seed: int = 2) -> list:
+    """Phase 14's request stream: 6 requests, prompts of 16–64 tokens
+    drawn from ``seed``, 16 new tokens each, arrival ticks 0–8."""
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(0, 9)),
+             rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
+             16) for _ in range(6)]
+
+
 def serve_phase(torch, np, T, model, cfg, dev, card) -> None:
     """Phase 14's stream (6 requests, prompts of 16–64 tokens, 16 new
     tokens each, arrival ticks 0–8, 4 slots, max_len 256) through
@@ -2299,10 +2340,7 @@ def serve_phase(torch, np, T, model, cfg, dev, card) -> None:
     within 2e-3 of the forward at the prompt's last position."""
     from repro_torch import obs
     from repro_torch.serve.batching import serve_stream
-    rng = np.random.default_rng(2)
-    stream = [(int(rng.integers(0, 9)),
-               rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist(),
-               16) for _ in range(6)]
+    stream = phase14_stream(np, cfg)
     rec = obs.Recorder("serve")
     with obs.use(rec):
         reqs, wall = timed(torch, lambda: serve_stream(
@@ -2489,8 +2527,10 @@ def llama4_phases(torch, np, dev, card, tokens, gen) -> tuple:
     return launches, lp_err
 
 
-def deepseek_phases(torch, np, dev, card, tokens) -> None:
-    """Phase 39: deepseek-v2's forward and absorbed decode."""
+def deepseek_phases(torch, np, dev, card, tokens) -> dict:
+    """Phase 39: deepseek-v2's forward and absorbed decode; then phase 53
+    on the same weights.  Returns phase 53's pin_count launches and the
+    largest difference of its calls from the plain version."""
     from repro_torch.models import transformer as T
     arch = "deepseek_v2_236b"
     cfg, model = make_decoder(torch, T, arch, dev, card)
@@ -2506,8 +2546,149 @@ def deepseek_phases(torch, np, dev, card, tokens) -> None:
     log(f"deepseek-v2 cache: {per_token} B per token at {cfg.n_layers} "
         f"layers ((kv_lora {cfg.kv_lora} + rope {cfg.rope_head_dim}) x 4 B "
         f"x layers; K and V of {cfg.n_heads} heads would take {full_kv} B)")
+    out = traffic_phase(torch, np, T, model, cfg, dev, card)
     log(f"deepseek-v2 phases: peak memory "
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return out
+
+
+def check_slot_tracks(rec, n_req, n_after_first) -> dict:
+    """Phase 53's trace checks: the Chrome trace has tracks ``slot 0`` …
+    ``slot 3`` and ``queue``; on every slot track each request's
+    ``req``/``prefill``/``decode`` B/E pairs nest and close; one ``tok``
+    instant per generated token after the first.  Returns the counts."""
+    from repro_torch import obs
+    trace = obs.chrome_trace(rec, registry_gauges=True)["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in trace if e["ph"] == "M"}
+    check({"slot 0", "slot 1", "slot 2", "slot 3", "queue"}
+          <= set(names.values()), f"tracks {sorted(names.values())}")
+    stacks = {tid: [] for tid in names}
+    opened = {"req": 0, "prefill": 0, "decode": 0}
+    toks = 0
+    for e in trace:
+        if e["ph"] == "B":
+            check(e["tid"] in stacks, f"span {e['name']} off the tracks")
+            stacks[e["tid"]].append(e["name"])
+            opened[e["name"].split()[0]] += 1
+        elif e["ph"] == "E":
+            st = stacks[e["tid"]]
+            check(bool(st) and st.pop() == e["name"],
+                  f"unbalanced end of {e['name']} on {names[e['tid']]}")
+        elif e["ph"] == "i" and e["name"] == "tok":
+            toks += 1
+    check(not any(stacks.values()), f"open spans {stacks}")
+    check(opened == {"req": n_req, "prefill": n_req, "decode": n_req},
+          f"spans per request {opened}")
+    check(toks == n_after_first,
+          f"{toks} tok instants for {n_after_first} tokens")
+    return {**opened, "tok": toks, "events": len(trace)}
+
+
+def traffic_phase(torch, np, T, model, cfg, dev, card) -> dict:
+    """Phase 53: phase 14's stream served with ``ServeTelemetry`` and the
+    gate tap into a ``TrafficAccumulator``, without either, and with
+    telemetry alone (identical tokens, three walls); the latency
+    quantiles and tokens/s; the trace's tracks, spans and instants; the
+    traffic hypergraph through kahypar on the card beside the identity
+    placement, every pin_count launch held against its plain version; a
+    second stream's drift."""
+    from repro_torch import obs
+    from repro_torch.core.hypergraph import connectivity, kahypar
+    from repro_torch.kernels import lp_affinity, pin_affinity, ref
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.batching import serve_stream
+
+    # -- 53. serve telemetry and the live traffic hypergraph ---------------
+    stream = phase14_stream(np, cfg)
+    rec = obs.Recorder("serve_telemetry")
+    acc = obs.TrafficAccumulator(cfg.n_experts, decay=0.95)
+    tele = obs.ServeTelemetry(recorder=rec, traffic=acc)
+    with MOE.observe_gates(acc):
+        reqs, wall = timed(torch, lambda: serve_stream(
+            model, cfg, stream, batch_slots=4, max_len=256, telemetry=tele))
+    # read at once: the rates decay, and later runs count into the registry
+    snap = tele.snapshot()
+    served = {k: v for k, v in rec.counters().items()
+              if k.startswith("serve/")}
+    plain, wall0 = timed(torch, lambda: serve_stream(
+        model, cfg, stream, batch_slots=4, max_len=256))
+    # the telemetry's share of the tapped run's extra time, without the tap
+    untapped, wall1 = timed(torch, lambda: serve_stream(
+        model, cfg, stream, batch_slots=4, max_len=256,
+        telemetry=obs.ServeTelemetry(recorder=obs.Recorder("untapped"))))
+    n_new = sum(len(r.out) for r in reqs)
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "a request did not finish with 16 tokens")
+    check([r.out for r in reqs] == [r.out for r in plain]
+          == [r.out for r in untapped],
+          "served tokens differ with telemetry on and off")
+    lat = {k: {q: round(v, 1) for q, v in qs.items()}
+           for k, qs in snap["latency_us"].items()}
+    log(f"deepseek-v2 served phase 14's stream (6 requests, 4 slots, "
+        f"max_len 256) with ServeTelemetry and the gate tap: wall_s="
+        f"{wall:.4f} ({n_new / wall:.2f} tokens/s), without either: wall_s="
+        f"{wall0:.4f} ({n_new / wall0:.2f} tokens/s), telemetry without the "
+        f"tap: wall_s={wall1:.4f}; tokens identical; "
+        f"latency quantiles (us) {json.dumps(lat)}; tok_per_s window "
+        f"{snap['tok_per_s_window']:.2f}, ewma {snap['tok_per_s_ewma']:.2f};"
+        f" total_tokens {snap['total_tokens']}, steps {snap['steps']} "
+        f"[{card}]")
+    check(snap["total_tokens"] == n_new and snap["total_requests"] == 6,
+          f"telemetry counted {snap['total_tokens']} tokens, "
+          f"{snap['total_requests']} requests")
+    check(set(lat) == {"queue_us", "prefill_us", "decode_us", "e2e_us"},
+          f"latency sketches {sorted(lat)}")
+    counts = check_slot_tracks(rec, len(reqs), n_new - len(reqs))
+    log(f"serve trace: {json.dumps(counts)}; serve counters "
+        f"{json.dumps(served)}")
+    check(served.get("serve/tokens") == n_new
+          and served.get("serve/requests_finished") == len(reqs),
+          f"serve counters {served}")
+    hg = acc.snapshot()
+    hg.check()
+    check(hg.n == cfg.n_experts, f"traffic hypergraph of {hg.n} vertices")
+    k = 4
+    with capturing(torch, pin_affinity, "pin_count_csr_cuda",
+                   every=True) as pins, \
+            capturing(torch, lp_affinity, "affinity_cuda") as lps:
+        torch.cuda.synchronize()
+        obs.metrics.reset(pin_affinity.LAUNCHES)
+        part, kwall = timed(torch, lambda: kahypar(hg, k, preset="eco",
+                                                   seed=1, device=dev))
+        launches = int(obs.metrics.get(pin_affinity.LAUNCHES))
+    identity = np.arange(hg.n) // (hg.n // k)
+    km1, km1_id = connectivity(hg, part), connectivity(hg, identity)
+    log(f"traffic hypergraph: {hg.n} experts, {hg.m} nets, {hg.pins} pins "
+        f"from {acc.events} routed tokens; kahypar eco k={k}: km1 {km1} "
+        f"against the identity placement's {km1_id}, block loads "
+        f"{np.bincount(part, weights=hg.vwgt, minlength=k).astype(int).tolist()}, "
+        f"wall_s={kwall:.4f}, pin_count launches={launches} [{card}]")
+    check(launches > 0, "kahypar on the traffic hypergraph never launched "
+          "pin_count")
+    err = 0.0
+    for eptr, pv, mask, labels, kk in pins.values():
+        got = pin_affinity.pin_count_csr_cuda(eptr, pv, mask, labels, kk)
+        want = ref.pin_count_csr_ref(eptr, pv, mask, labels, kk)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+    log(f"traffic kahypar: pin_count_csr == pin_count_csr_ref on each of "
+        f"its {len(pins)} calls' inputs (max |err| {err:g})")
+    check(err == 0.0, f"pin_count_csr differs from its plain version on "
+          f"the traffic hypergraph: {err}")
+    lp_err = replay_lp(torch, lps, "traffic kahypar") if lps else 0.0
+    acc.set_baseline()
+    with MOE.observe_gates(acc):
+        serve_stream(model, cfg, phase14_stream(np, cfg, seed=3),
+                     batch_slots=4, max_len=256)
+    advised = acc.advise(rec)
+    log(f"traffic drift after a second stream (seed 3): {acc.drift():.4f}; "
+        f"gauges serve/traffic_drift="
+        f"{obs.metrics.gauge('serve/traffic_drift'):.4f}, "
+        f"serve/repartition_advised="
+        f"{obs.metrics.gauge('serve/repartition_advised')} "
+        f"(advised {advised})")
+    return {"traffic_kahypar": launches, "pin_count_err": err,
+            "lp_affinity_err": lp_err}
 
 
 def rwkv6_phases(torch, np, dev, card, tokens) -> None:
@@ -2971,10 +3152,10 @@ def mesh_phases(torch, np, dev, card) -> None:
 
 
 def decoder_phases(torch, np, dev, card) -> dict:
-    """Phases 35-44, one model at a time (each freed before the next);
-    returns lp_affinity's launches on the expert placement path and,
-    under "errors", its largest difference from the plain version on that
-    path's calls."""
+    """Phases 35-44 and 53, one model at a time (each freed before the
+    next); returns lp_affinity's launches on the expert placement path,
+    pin_count's on phase 53's kahypar and, under "errors", each kernel's
+    largest difference from the plain version on those paths' calls."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def tokens(cfg, *shape):
@@ -2984,13 +3165,127 @@ def decoder_phases(torch, np, dev, card) -> dict:
     torch.cuda.empty_cache()
     launches, lp_err = llama4_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
-    deepseek_phases(torch, np, dev, card, tokens)
+    traffic = deepseek_phases(torch, np, dev, card, tokens)
     torch.cuda.empty_cache()
     rwkv6_phases(torch, np, dev, card, tokens)
     torch.cuda.empty_cache()
     whisper_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
-    return {"expert_placement": launches, "errors": {"lp_affinity": lp_err}}
+    return {"expert_placement": launches,
+            "traffic_kahypar": traffic["traffic_kahypar"],
+            "errors": {"lp_affinity": max(lp_err,
+                                          traffic["lp_affinity_err"]),
+                       "pin_count": traffic["pin_count_err"]}}
+
+
+def formats_phase(torch, np, g, part3, dev, card) -> tuple:
+    """Phase 52: the file formats at phase 3's graph and the recorded
+    kaffpa path; returns (lp_affinity launches of the recorded run, max
+    |err| of its calls against the plain version)."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core import interface
+    from repro_torch.io import binio
+    from repro_torch.io.generators import grid2d
+    from repro_torch.io.metis import read_partition, write_metis, write_partition
+    from repro_torch.kernels import lp_affinity
+    from repro_torch.kernels.lp_affinity import LAUNCHES
+
+    # -- 52. file formats and the recorded kaffpa path ---------------------
+    work = ROOT / "build" / "formats"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    text, ram, ext = (work / "grid.graph", work / "grid.bin",
+                      work / "grid.ext.bin")
+    secs = {}
+    for what, fn in (("write_metis", lambda: write_metis(g, str(text))),
+                     ("graph2binary",
+                      lambda: binio.graph2binary(str(text), str(ram))),
+                     ("graph2binary_external",
+                      lambda: binio.graph2binary_external(str(text),
+                                                          str(ext)))):
+        t0 = time.perf_counter()
+        fn()
+        secs[what] = round(time.perf_counter() - t0, 3)
+    check(ram.read_bytes() == ext.read_bytes(),
+          "graph2binary and graph2binary_external files differ")
+    back, rsecs = timed(torch, lambda: binio.read_binary(str(ram)))
+    check(np.array_equal(back.xadj, g.xadj)
+          and np.array_equal(back.adjncy, g.adjncy),
+          "read_binary does not give back the graph")
+    log(f"file formats on grid2d(1024,1024) (n={g.n}, m={g.m}): seconds "
+        f"{json.dumps({**secs, 'read_binary': round(rsecs, 3)})}; Metis "
+        f"{text.stat().st_size} B, binary {ram.stat().st_size} B, both "
+        f"converters byte-identical [{card}]")
+    args = (g.n, None, g.xadj, None, g.adjncy, 16, 0.03)
+
+    def run(rec):
+        return timed(torch, lambda: interface.kaffpa(
+            *args, seed=1, mode=interface.ECO, report=rec, device=dev))
+
+    # in turns: unrecorded, recorded (its launches counted from 0 and its
+    # kernel calls kept), recorded, unrecorded
+    (_, part0), wall0 = run(None)
+    with capturing(torch, lp_affinity, "affinity_cuda") as calls:
+        torch.cuda.synchronize()
+        obs.metrics.reset(LAUNCHES)
+        rec = obs.Recorder("kaffpa_recorded", annotate_xprof=True)
+        (cut, part), wall = run(rec)
+        launches = int(obs.metrics.get(LAUNCHES))
+        ctr = rec.counters()
+    (_, part1), wall1 = run(obs.Recorder("again", annotate_xprof=True))
+    (_, part2), wall2 = run(None)
+    log(f"kaffpa ECO k=16 on the 1M grid, in turns: wall_s without a "
+        f"recorder {wall0:.3f}, under Recorder(annotate_xprof=True) "
+        f"{wall:.3f}, again {wall1:.3f}, without {wall2:.3f}; cut={cut}; "
+        f"lp_affinity launches={launches} (the recorder's count "
+        f"{int(ctr.get(LAUNCHES, 0))}), events {len(rec.events)}, kernel "
+        f"builds {rec.compile_count} [{card}]")
+    check(all(np.array_equal(part, p) for p in (part0, part1, part2)),
+          "the recorded kaffpa partition differs from the unrecorded one")
+    check(np.array_equal(part, part3), "phase 52's partition differs from "
+          "phase 3's")
+    check(launches > 0 and ctr.get(LAUNCHES, 0) == launches,
+          f"the recorded kaffpa launched lp_affinity {launches} times, its "
+          f"recorder counted {ctr.get(LAUNCHES, 0)}")
+    err = replay_lp(torch, calls, "recorded kaffpa")
+    write_partition(part, str(work / "tmppartition16"))
+    binio.write_partition_binary(part, str(work / "tmppartition16.bin"))
+    check(np.array_equal(read_partition(str(work / "tmppartition16")), part)
+          and np.array_equal(binio.read_partition_binary(
+              str(work / "tmppartition16.bin")), part),
+          "a partition file does not read back")
+    n_lines = obs.write_jsonl(rec, str(work / "kaffpa.jsonl"))
+    headers, events = obs.read_jsonl(str(work / "kaffpa.jsonl"))
+    check(len(headers) == 1 and len(events) == len(rec.events)
+          == n_lines - 1, f"journal: {len(events)} of {len(rec.events)} "
+          f"events read back")
+    depth = {}
+    for e in obs.chrome_trace(rec)["traceEvents"]:
+        if e["ph"] in ("B", "E"):
+            depth[e["tid"]] = depth.get(e["tid"], 0) + (
+                1 if e["ph"] == "B" else -1)
+            check(depth[e["tid"]] >= 0, f"span {e['name']} ends unopened")
+    check(set(depth.values()) == {0}, f"open spans per tid {depth}")
+    # a short profiler window: the spans appear by name beside the kernels
+    small = grid2d(64, 64)
+    prec = obs.Recorder("kaffpa_profiled", annotate_xprof=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        interface.kaffpa(small.n, None, small.xadj, None, small.adjncy, 4,
+                         0.03, seed=1, mode=interface.ECO, report=prec,
+                         device=dev)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    log(f"journal: {n_lines} lines read back; Chrome trace spans balance on "
+        f"{len(depth)} tids; torch.profiler window (kaffpa on grid2d(64,64)):"
+        f" {len(names)} event names, the recorder's spans among them: "
+        f"{sorted(names & {'multilevel', 'refine', 'hierarchy', 'uncoarsen'})}")
+    check({"multilevel", "refine"} <= names,
+          "the recorder's spans are missing from the profiler's events")
+    shutil.rmtree(work)
+    return launches, err
 
 
 def main() -> int:
@@ -3146,20 +3441,24 @@ def main() -> int:
     dec = decoder_phases(torch, np, dev, card)
     trn = train_phases(torch, np, dev, card)
     mesh_phases(torch, np, dev, card)
+    rec_launches, rec_err = formats_phase(torch, np, g, part, dev, card)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity
     pin_row["launches_by_path"] = {"kahyparE": paths["kahyparE"],
-                                   "parhyp": dpaths["parhyp"]}
+                                   "parhyp": dpaths["parhyp"],
+                                   "traffic_kahypar": dec["traffic_kahypar"]}
     pin_row["per_shard"] = dpaths["per_shard"]
     sep_row["launches_by_path"] = {
         "memetic_separator": paths["memetic_separator"]}
     errs = paths["errors"]
     derrs = dpaths["errors"]
     max_err = max(max_err, errs["lp_affinity"], derrs["lp_affinity"],
-                  dec["errors"]["lp_affinity"], trn["errors"]["lp_affinity"])
+                  dec["errors"]["lp_affinity"], trn["errors"]["lp_affinity"],
+                  rec_err)
     pin_row["max_abs_err"] = max(pin_row["max_abs_err"], errs["pin_count"],
-                                 derrs["pin_count"])
+                                 derrs["pin_count"],
+                                 dec["errors"]["pin_count"])
     sep_row["max_abs_err"] = max(sep_row["max_abs_err"],
                                  errs["sep_affinity"])
     log(json.dumps({"kernels": [{
@@ -3182,7 +3481,8 @@ def main() -> int:
             "distributed_edge_partition": dpaths[
                 "distributed_edge_partition"],
             "expert_placement": dec["expert_placement"],
-            "partition_layers": trn["partition_layers"]}},
+            "partition_layers": trn["partition_layers"],
+            "kaffpa_recorded": rec_launches}},
         pin_row, *ssd_rows, sep_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

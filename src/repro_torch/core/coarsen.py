@@ -36,6 +36,11 @@ def contract(g: Graph, clusters: np.ndarray):
     return coarse, cl
 
 
+def project(labels_coarse: np.ndarray, cl: np.ndarray) -> np.ndarray:
+    """Lift a coarse partition back to the finer level."""
+    return np.asarray(labels_coarse)[cl]
+
+
 def heavy_edge_matching(g: Graph, seed: int = 0, rounds: int = 3,
                         max_cluster_weight: Optional[float] = None,
                         forbidden: Optional[np.ndarray] = None) -> np.ndarray:
@@ -109,3 +114,24 @@ def lp_clustering(g: Graph, max_cluster_weight: float, iters: int = 8,
         clusters = clusters.copy()
         clusters[viol] = g.n + np.arange(len(viol))
     return clusters
+
+
+def coarsen_level(g: Graph, mode: str, max_cluster_weight: float,
+                  seed: int, forbidden: Optional[np.ndarray] = None,
+                  device=None):
+    """One coarsening step; returns (coarse, cl) or None if it stalls.
+    ``"lp"`` clusters on ``device`` (None = CUDA); ``"matching"`` is host
+    code and ignores it."""
+    if mode == "matching":
+        clusters = heavy_edge_matching(g, seed=seed,
+                                       max_cluster_weight=max_cluster_weight,
+                                       forbidden=forbidden)
+    elif mode == "lp":
+        clusters = lp_clustering(g, max_cluster_weight, seed=seed,
+                                 forbidden=forbidden, device=device)
+    else:
+        raise ValueError(f"unknown coarsening mode {mode!r}")
+    coarse, cl = contract(g, clusters)
+    if coarse.n >= g.n * 0.95:          # stalled — not shrinking
+        return None
+    return coarse, cl

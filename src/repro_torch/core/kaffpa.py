@@ -194,6 +194,21 @@ class GraphMedium(ML.ViewCache):
         return is_feasible(self.g, part, k, eps)
 
 
+def multilevel_partition(g: Graph, k: int, eps: float, cfg: KaffpaConfig,
+                         seed: int, device=None) -> np.ndarray:
+    """One multilevel cycle (coarsen, tournament, uncoarsen-refine) on
+    ``device`` (None = CUDA)."""
+    return ML.multilevel(GraphMedium(g, cfg, device=device), k, eps, seed)
+
+
+def vcycle(g: Graph, part: np.ndarray, k: int, eps: float, cfg: KaffpaConfig,
+           seed: int, device=None) -> np.ndarray:
+    """Iterated multilevel: re-coarsen protecting the current partition's cut
+    edges, use it as the coarsest initial partition, refine on the way up.
+    Quality is non-decreasing (§2.1)."""
+    return ML.vcycle(GraphMedium(g, cfg, device=device), part, k, eps, seed)
+
+
 def kaffpa(g: Graph, k: int, eps: float = 0.03, preset: str = "eco",
            seed: int = 0, time_limit: float = 0.0,
            input_partition: Optional[np.ndarray] = None,

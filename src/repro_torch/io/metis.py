@@ -1,4 +1,5 @@
-"""Metis / Chaco / DIMACS-challenge text graph format (paper §3.1.1)."""
+"""Metis / Chaco / DIMACS-challenge text graph format (paper §3.1.1) and the
+partition / separator output formats (§3.2)."""
 from __future__ import annotations
 
 import numpy as np
@@ -94,6 +95,15 @@ def graphchecker(path: str) -> list:
 
 
 # -- output formats (§3.2) ---------------------------------------------------
+
+def write_partition(part: np.ndarray, path: str) -> None:
+    """tmppartition<k>: line i = block id of vertex i."""
+    np.savetxt(path, np.asarray(part, dtype=np.int64), fmt="%d")
+
+
+def read_partition(path: str) -> np.ndarray:
+    return np.loadtxt(path, dtype=np.int64, ndmin=1)
+
 
 def write_separator(part: np.ndarray, sep_ids: np.ndarray, k: int,
                     path: str) -> None:

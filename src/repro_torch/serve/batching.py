@@ -23,8 +23,9 @@ Slot isolation:
     before it can ever be read.
 
 Everything runs on the device the model's parameters live on, under
-``torch.no_grad()``.  Telemetry is opt-in via ``telemetry=``; the default
-`NULL_TELEMETRY` makes every hook a no-op.
+``torch.no_grad()``.  Telemetry is opt-in via ``telemetry=``
+(`obs.live.ServeTelemetry`); the default `NULL_TELEMETRY` makes every
+hook a no-op.
 """
 from __future__ import annotations
 
@@ -117,9 +118,11 @@ class ContinuousBatcher:
                                        device=self.device)
                 lg, _ = prefill_step(self.model, self.cfg, toks[None], view,
                                      stepwise=True)
-                tele.prefilled(req.rid, s, len(req.prompt))
                 req.logits = lg[0]
+                # reading the token waits for the card, so the hook after
+                # it times the prefill's work, not only its launches
                 first = int(lg[0].argmax())
+                tele.prefilled(req.rid, s, len(req.prompt))
                 req.out.append(first)
                 self.pos[s] = len(req.prompt)
                 if req.max_new == 1 or self.pos[s] >= self.max_len - 1:

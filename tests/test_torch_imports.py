@@ -1,17 +1,21 @@
-"""Import hygiene: `repro_torch`, chip_smoke.py and the port's profiling
-and 4-card tools import neither jax nor the JAX package `repro`, so the
-port installs
+"""Import hygiene: `repro_torch`, chip_smoke.py, the port's profiling
+and 4-card tools and its examples (`examples/*_torch.py`) import neither
+jax nor the JAX package `repro`, so the port installs
 and runs without them: a tiny kaffpa, a tiny kahypar, a tiny node
 separator and ordering, the memetic programs (kaffpaE, KaBaPE, kahyparE,
 the memetic separator), process mapping and the ILP improvement, reduced
 zamba2, rwkv6 and whisper forwards and one served request each, a train
-step, a checkpoint round trip and pipeline stages run with both blocked.
+step, a checkpoint round trip and pipeline stages run with both blocked,
+and so do the quickstart (file formats, a recorded kaffpa written as a
+Chrome trace), the serving example (telemetry, the traffic hypergraph
+through kahypar) and the training example, on the CPU.
 `core.mesh` imports ``torch.distributed`` only where a process group is
 used, so ``import repro_torch`` and the distributed programs on a world
 of one (parhip, parhyp, the distributed edge partition, a ring roll, a
 MoE decoder under ``shardings.use_mesh`` of a local mesh) run with it
 blocked too."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -20,6 +24,7 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path):
@@ -35,8 +40,8 @@ def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py",
         ROOT / "tools" / "profile_torch_train.py",
-        ROOT / "tools" / "serve_torch_sharded.py"]
-    assert len(files) > 25
+        ROOT / "tools" / "serve_torch_sharded.py"] + EXAMPLES
+    assert len(files) > 25 and len(EXAMPLES) == 5
     assert PORT / "core" / "hypergraph" / "refine.py" in files
     assert PORT / "core" / "nodesep" / "refine.py" in files
     for new in (("core", "memetic", "driver.py"),
@@ -50,7 +55,8 @@ def test_no_jax_or_reference_imports_in_source():
                 ("train", "checkpoint.py"), ("train", "data.py"),
                 ("train", "fault.py"), ("train", "pipeline.py"),
                 ("models", "shardings.py"), ("launch", "mesh.py"),
-                ("launch", "ranks.py")):
+                ("launch", "ranks.py"), ("obs", "trace.py"),
+                ("obs", "live.py"), ("io", "binio.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -234,3 +240,48 @@ def test_world_of_one_runs_without_torch_distributed():
                          text=True, env=env, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_examples_run_with_jax_and_reference_blocked(tmp_path):
+    """The quickstart, serving and training examples run on the CPU with
+    jax and `repro` blocked (the other two are imported); each writes
+    only under its ``--out`` / ``--ckpt`` directory."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        ex = {str(ROOT / "examples")!r}
+        runs = {{
+            "quickstart_torch": ["--cpu", "--out", {str(tmp_path / "q")!r}],
+            "serve_lm_torch": ["--cpu", "--out", {str(tmp_path / "s")!r}],
+            "train_lm_torch": ["--cpu", "--steps", "3", "--dim", "64",
+                               "--layers", "2", "--seq", "16", "--batch",
+                               "2", "--ckpt", {str(tmp_path / "c")!r}],
+        }}
+        for name in ("hypergraph_partition_torch",
+                     "partition_and_map_torch"):
+            runpy.run_path(f"{{ex}}/{{name}}.py", run_name="imported")
+        for name, argv in runs.items():
+            sys.argv = [name] + argv
+            runpy.run_path(f"{{ex}}/{{name}}.py", run_name="__main__")
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k in sys.modules if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok")
+    assert "recorded run: edgecut=" in out.stdout
+    assert "kahypar (λ-1)" in out.stdout and "done: {'restarts': 0" \
+        in out.stdout
+    trace = json.loads((tmp_path / "q" / "quickstart_trace.json").read_text())
+    assert any(e["name"] == "multilevel" for e in trace["traceEvents"])
+    serve = json.loads((tmp_path / "s" / "serve_trace.json").read_text())
+    tracks = {e["args"]["name"] for e in serve["traceEvents"]
+              if e["ph"] == "M"}
+    assert {"slot 0", "slot 1", "slot 2", "queue"} <= tracks
+    assert sorted(p.name for p in (tmp_path / "q").iterdir()) == sorted([
+        "quickstart.graph", "quickstart.bin", "quickstart.ext.bin",
+        "tmppartition4", "tmppartition4.bin", "quickstart_trace.json"])
