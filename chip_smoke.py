@@ -18,7 +18,7 @@ served, llama4-scout's MoE with expert placement by kaffpa, deepseek-v2's
 MLA), rwkv6-7B (forward, O(1)-state decode, served) and whisper-medium
 (encoder and cross-attention), then trains minicpm-2B at full width
 (with the hybrid and ssm families and pipeline stages beside it), runs
-the decoder stack under a (1, 1) NCCL mesh (the tensor-parallel code
+every model family under a (1, 1) NCCL mesh (the tensor-parallel code
 path at a model extent of 1) and sizes every arch's per-rank blocks, then
 writes and reads the graph and partition file formats at the 1M-vertex
 mesh beside a recorded kaffpa and serves deepseek-v2 with live telemetry
@@ -356,6 +356,28 @@ Phases:
     40·r … 40·r+39 on shard r); after ``set_baseline()`` a second stream
     (seed 3), then ``advise``: the drift and both gauges.
 
+54. (Run after phase 16.) ``ops.ssd_scan`` grouped at zamba2's per-rank
+    shape on (data 1, model 4): 2 rows of B and C, each shared by 20 of
+    the 80 SSM heads (BH = 40), L = 2048, P = N = 64, chunk 128, on the
+    sweep's draws: within 3e-4 (abs + rel) of
+    ``ref.ssd_scan_grouped_ref``, timed beside the plain version and its
+    byte bound (in the kernels line as the grouped row's
+    ``per_rank_shape``).
+55. (Run after phase 50, through the same mesh.) zamba2-2.7B, rwkv6-7B
+    and whisper-medium whole and deepseek-v2 at 2 layers, full width:
+    the forward at B = 1 (L = 2048; whisper 448 tokens on 1500 frames,
+    deepseek-v2 1024), a 16-token ``prefill_step`` (token by token on
+    the hybrid and ssm families, with the frames on whisper) and 4
+    greedy decode steps under ``use_mesh`` of the (1, 1) mesh: bit for
+    bit the runs without a mesh (``tp_rmsnorm``, the Mamba2 segments and
+    rwkv6's gathered receptance at a model extent of 1).
+56. (Run with phase 51.) Phase 51's port bytes are the blocks
+    ``shardings.tp_block`` gives a rank (the Mamba2 segments, rwkv6's
+    per-head leaves), every arch now having a tensor-parallel form; and
+    deepseek-v2 at the depth tools/serve_torch_sharded.py's deepseek mode
+    takes on this card (the most of its 60 layers that leave 15 GB
+    free): its per-rank bytes under the specs and the port's blocks.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
 """
@@ -449,6 +471,16 @@ TRAIN_DEPTH = {"zamba2_2p7b": 6, "rwkv6_7b": 2}
 TRAIN_CUT_FWD = (1, 2048)
 # phase 48: pipeline stages of the deepest dense config
 PIPE_ARCH, PIPE_STAGES = "mistral_large_123b", 8
+# phase 54: the SSD scan at zamba2's per-rank shape on (data 1, model 4):
+# B x L, and 80 SSM heads over 4 ranks sharing each row of B and C
+SSD_RANK_FWD, SSD_RANK_HEADS = (2, 2048), 20
+# phase 55: the four families PR 22's (1, 1) check left out, each a
+# forward at B = 1 (whisper on its 1500 frames), a prompt and decode steps
+MESH_FAMILIES = {"zamba2_2p7b": None, "rwkv6_7b": None,
+                 "whisper_medium": None, "deepseek_v2_236b": 2}
+MESH_FWD = {"zamba2_2p7b": 2048, "rwkv6_7b": 2048, "whisper_medium": 448,
+            "deepseek_v2_236b": 1024}
+MESH_PROMPT, MESH_STEPS = 16, 4
 
 
 class SmokeError(RuntimeError):
@@ -1024,10 +1056,42 @@ def run_forward(torch, T, model, cfg, tokens, engine):
             int(obs.metrics.get(LAUNCHES)))
 
 
+def ssd_rank_phase(torch, np, dev, card, p, n, q) -> dict:
+    """Phase 54: the grouped scan at zamba2's per-rank shape on (data 1,
+    model 4) (`SSD_RANK_FWD`, `SSD_RANK_HEADS` heads per row of B and C,
+    head dim ``p``, state ``n``, chunk ``q``) on the sweep's draws, held
+    to ``ref.ssd_scan_grouped_ref`` within 3e-4 abs + rel and timed
+    beside its bound."""
+    from repro_torch.kernels import ops, ref
+    (g, l), heads = SSD_RANK_FWD, SSD_RANK_HEADS
+    gins = [torch.from_numpy(a).to(dev)
+            for a in ssd_grouped_inputs(np, g, heads, l, p, n)]
+    got = ops.ssd_scan(*gins, heads=heads)
+    want = ref.ssd_scan_grouped_ref(*gins, heads)
+    torch.cuda.synchronize()
+    excess = ssd_excess(got, want)
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and excess <= 3e-4,
+          f"ssd_scan at the per-rank shape {tuple(gins[0].shape)} heads="
+          f"{heads}: |err| − 3e-4|want| = {excess}")
+    ms = cuda_ms(torch, lambda: ops.ssd_scan(*gins, heads=heads))
+    plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_grouped_ref(*gins, heads),
+                       iters=3, warmup=1)
+    bh = g * heads
+    bms, by, rd = ssd_bound(bh, l, p, n, q, g)
+    log(f"ssd_scan grouped at zamba2's per-rank shape on (1, 4): BH={bh} "
+        f"heads={heads} L={l} P={p} N={n} chunk={q}: within 3e-4 of "
+        f"ssd_scan_grouped_ref (max |err| {err:g}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+        f"({rd['bytes']} B at {PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
+    return {"shape": [bh, l, p, n, q, heads], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+
+
 def zamba2_phases(torch, np, dev, card) -> list:
-    """Phases 12-16; returns the ssd_scan rows of the kernels line (the
-    per-row form, comparable with earlier runs, and the grouped form the
-    main path runs)."""
+    """Phases 12-16 and 54; returns the ssd_scan rows of the kernels line
+    (the per-row form, comparable with earlier runs, and the grouped form
+    the main path runs, with phase 54's per-rank shape)."""
     from repro_torch import obs
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops, ref
@@ -1235,6 +1299,12 @@ def zamba2_phases(torch, np, dev, card) -> list:
                      "device_launches_per_call": sum(per_call.values()),
                      "launch_ms": per_launch,
                      "shape": [bh, l, p, n, q, bh // f["groups"]]})
+
+    # -- 54. the grouped scan at zamba2's per-rank shape --------------------
+    check(cfg.ssm_nheads == 4 * SSD_RANK_HEADS, f"{cfg.ssm_nheads} SSM heads")
+    rows[1]["per_rank_shape"] = ssd_rank_phase(torch, np, dev, card, p, n, q)
+    err = rows[1]["per_rank_shape"]["max_abs_err"]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err)
     return rows
 
 
@@ -3020,39 +3090,50 @@ def train_phases(torch, np, dev, card) -> dict:
     return {"partition_layers": launches, "errors": {"lp_affinity": lp_err}}
 
 
+class RankStandIn:
+    """Rank 0's coordinates on a mesh of ``sizes`` over ``axes``: what
+    `shardings.tp_block` reads, without a process group (every rank's
+    blocks have one size)."""
+
+    def __init__(self, axes, sizes):
+        self.axis_names, self.shape = tuple(axes), tuple(sizes)
+
+    def extent(self, axis):
+        return self.shape[self.axis_names.index(axis)]
+
+    def axis_index(self, axis):
+        return 0
+
+
 def per_rank_bytes(np, model, cfg, axes, sizes) -> tuple:
     """(bytes per rank under the reference's specs, bytes per rank of the
     port's explicit layout) of ``model``'s f32 parameters on a mesh of
     ``sizes`` over ``axes``: the specs split each dim over the product of
-    their axes' extents (rounded up, as GSPMD pads); the port splits only
-    over ``model`` and keeps, where ``model`` does not divide the KV
-    heads, the one KV head of the rank's query heads."""
+    their axes' extents (rounded up, as GSPMD pads); the port holds the
+    blocks `shardings.tp_block` gives a rank (split over ``model`` only,
+    with the departures its module docstring lists)."""
     from repro_torch.models import shardings as SH
     ext = dict(zip(axes, sizes))
-    m = ext["model"]
+    rank = RankStandIn(axes, sizes)
     spec_b = port_b = 0
     for name, p in model.named_parameters():
         spec = SH.leaf_spec(name, p.dim(), axes)
-        split = []
-        for dim, e in zip(p.shape, spec):
-            n = int(np.prod([ext[a] for a in
-                             (e if isinstance(e, tuple) else (e,))
-                             if a is not None]))
-            split.append((dim, n, e == "model"))
-        spec_b += 4 * int(np.prod([-(-dim // n) for dim, n, _ in split]))
-        if name.rsplit(".", 1)[-1] in ("wk", "wv") and cfg.n_kv_heads % m:
-            port_b += 4 * p.shape[0] * cfg.hd
-        else:
-            port_b += 4 * int(np.prod([dim // n if tp else dim
-                                       for dim, n, tp in split]))
+        split = [int(np.prod([ext[a] for a in
+                              (e if isinstance(e, tuple) else (e,))
+                              if a is not None])) for e in spec]
+        spec_b += 4 * int(np.prod([-(-dim // n)
+                                   for dim, n in zip(p.shape, split)]))
+        port_b += 4 * SH.tp_block(name, p, cfg, rank).numel()
     return spec_b, port_b
 
 
 def mesh_phases(torch, np, dev, card) -> None:
-    """Phases 49-51: the collectives tensor parallelism adds, through an
-    NCCL group of one; minicpm-2B and llama4-scout (2 layers) under a
-    (1, 1) mesh, bit for bit equal to no mesh; the per-rank bytes of
-    the ten archs' specs on (1, 4) and (2, 2)."""
+    """Phases 49-51, 55-56: the collectives tensor parallelism adds,
+    through an NCCL group of one; minicpm-2B and llama4-scout (2 layers),
+    then zamba2, rwkv6, whisper and deepseek-v2 (2 layers), under a
+    (1, 1) mesh, bit for bit equal to no mesh; the per-rank bytes of the
+    ten archs' specs and of the port's blocks on (1, 4) and (2, 2), and
+    of deepseek-v2 at the 4-card tool's depth."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch import obs
@@ -3125,13 +3206,54 @@ def mesh_phases(torch, np, dev, card) -> None:
             check(same_fwd and same_dec,
                   f"{cfg.name}: a (1, 1) mesh changed the logits")
             del model, runs, logits, caches
+
+        # -- 55. the four other families under the (1, 1) mesh -------------
+        for arch, depth in MESH_FAMILIES.items():
+            full = get_config(arch)
+            cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+            torch.cuda.empty_cache()
+            model = T.init_params(cfg, seed=0, mesh=mesh)
+            toks = torch.randint(0, cfg.vocab, (1, MESH_FWD[arch]),
+                                 generator=gen, device=dev)
+            frames = (torch.randn(1, cfg.enc_positions, cfg.d_model,
+                                  generator=gen, device=dev)
+                      if cfg.enc_layers else None)
+            prompt = toks[:, :MESH_PROMPT]
+            runs = {}
+            for name, ctx in (("none", contextlib.nullcontext()),
+                              ("mesh", SH.use_mesh(mesh))):
+                with ctx, torch.no_grad():
+                    logits = T.forward(model, cfg, toks, enc_frames=frames)[0]
+                    caches = T.init_caches(
+                        cfg, 1, MESH_PROMPT + MESH_STEPS, device=dev,
+                        mesh=None if name == "none" else mesh)
+                    lg, _ = prefill_step(model, cfg, prompt, caches,
+                                         enc_frames=frames)
+                    steps = [lg]
+                    for i in range(MESH_STEPS):
+                        lg, _ = decode_step(model, cfg, lg.argmax(-1)[:, None],
+                                            caches, MESH_PROMPT + i)
+                        steps.append(lg)
+                runs[name] = (logits, torch.stack(steps))
+            same_fwd = torch.equal(*[runs[n][0] for n in runs])
+            same_dec = torch.equal(*[runs[n][1] for n in runs])
+            log(f"{cfg.name} ({cfg.n_layers} layers) under use_mesh of the "
+                f"NCCL (1, 1) mesh: forward B=1 L={MESH_FWD[arch]}"
+                f"{'' if frames is None else f' on {frames.shape[1]} frames'}"
+                f" logits bit for bit equal to no mesh: {same_fwd}; prefill "
+                f"of {MESH_PROMPT} tokens + {MESH_STEPS} decode steps: "
+                f"{same_dec} [{card}]")
+            check(same_fwd and same_dec,
+                  f"{cfg.name}: a (1, 1) mesh changed the logits")
+            del model, runs, logits, caches
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # -- 51. the per-rank bytes of the specs ---------------------------------
+    # -- 51, 56. the per-rank bytes of the specs and of the port's blocks ----
     for arch in ARCH_IDS:
         cfg = get_config(arch)
+        SH.check_tp(cfg, 4)
         with FakeTensorMode():
             model = T.init_params(cfg, 0, device="cpu")
             total = 4 * sum(p.numel() for p in model.parameters())
@@ -3139,16 +3261,31 @@ def mesh_phases(torch, np, dev, card) -> None:
             for sizes in ((1, 4), (2, 2)):
                 rows[sizes] = per_rank_bytes(np, model, cfg,
                                              ("data", "model"), sizes)
-        try:
-            SH.check_tp(cfg, 4)
-            port = "the port's model-axis blocks"
-        except NotImplementedError:
-            port = "no tensor-parallel form in the port yet; its blocks would be"
         log(f"param_specs {cfg.name}: {total} B of f32 parameters; per rank "
             + "; ".join(f"(data {d}, model {m}): specs {sb} B "
-                        f"({sb / 1e9:.2f} GB), {port} {pb} B "
-                        f"({pb / 1e9:.2f} GB)"
+                        f"({sb / 1e9:.2f} GB), the port's model-axis "
+                        f"blocks {pb} B ({pb / 1e9:.2f} GB)"
                         for (d, m), (sb, pb) in rows.items()))
+    sys.path.insert(0, str(ROOT / "tools"))
+    from serve_torch_sharded import FREE_BYTES, fitting_depth, rank_bytes
+    cfg = get_config("deepseek_v2_236b")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    rank = RankStandIn(("data", "model"), (1, 4))
+    depth = fitting_depth(cfg, rank, card_bytes)
+    nbytes = rank_bytes(cfg, depth, rank)
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    with FakeTensorMode():
+        spec_b, port_b = per_rank_bytes(
+            np, T.init_params(cut, 0, device="cpu"), cut,
+            ("data", "model"), (1, 4))
+    log(f"param_specs {cfg.name} at {depth} of 60 layers (the most that "
+        f"leave {FREE_BYTES / 1e9:g} GB of this card's {card_bytes} B "
+        f"free: tools/serve_torch_sharded.py's deepseek depth): per rank on "
+        f"(data 1, model 4) specs {spec_b} B ({spec_b / 1e9:.2f} GB), the "
+        f"port's model-axis blocks {port_b} B ({port_b / 1e9:.2f} GB) "
+        f"[{card}]")
+    check(port_b == nbytes and depth > 2,
+          f"deepseek-v2's sizing: {depth} layers, {port_b} != {nbytes} B")
 
 
 def decoder_phases(torch, np, dev, card) -> dict:

@@ -16,7 +16,7 @@ def normal(gen: torch.Generator, shape, scale: float, dtype,
     unless ``device`` says otherwise), cast to ``dtype``."""
     device = gen.device if device is None else device
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 def whole(name: str, t: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,13 @@ Three interchangeable scan engines (tests assert equivalence):
 
 Decode keeps an (nheads, N, P) state and a conv tail; one step is O(1) in
 sequence length.
+
+The widths come from the weights: under a mesh with a ``model`` extent
+M > 1 (`models/shardings.py`, ``mamba_block``) ``p`` holds the rank's
+nheads/M heads (its columns of z, x and dt in ``in_proj``, all of B and
+C), the scan runs over those heads with B and C shared as everywhere,
+the gated norm reads the whole d_inner through `shardings.tp_rmsnorm`,
+and ``out_proj``'s row block is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import pad_to
-from repro_torch.models.layers import ParamTree, normal, rmsnorm
+from repro_torch.models import shardings as SH
+from repro_torch.models.layers import ParamTree, normal
 
 ENGINES = ("chunked", "kernel", "ref")
 
@@ -136,10 +144,12 @@ def _causal_conv(xbc, w, b, state=None):
 
 def scan_inputs(p, x, cfg, conv_state=None):
     """The mixer up to its scan: x (B,L,d) → (z, xh (B,L,nh,hd), x_eff
-    = xh·dt in f32, logdecay (B,L,nh), bmat, cmat (B,L,N), conv_tail)."""
+    = xh·dt in f32, logdecay (B,L,nh), bmat, cmat (B,L,N), conv_tail);
+    nh the heads ``p`` holds (`heads`)."""
     b_sz, l, _ = x.shape
-    di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
-        cfg.ssm_head_dim
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    nh = heads(p)
+    di = nh * hd
     zxbcdt = x @ p.in_proj
     z, xbc, dt = zxbcdt.split([di, di + 2 * n, nh], -1)
     xbc, conv_tail = _causal_conv(xbc, p.conv_w, p.conv_b, conv_state)
@@ -149,6 +159,12 @@ def scan_inputs(p, x, cfg, conv_state=None):
     xh = xs.reshape(b_sz, l, nh, hd)
     return z, xh, xh.float() * dt[..., None], logdecay, bmat, cmat, \
         conv_tail
+
+
+def heads(p) -> int:
+    """The SSM heads whose parameters ``p`` holds (all of them, or a
+    rank's under a mesh)."""
+    return p.a_log.shape[0]
 
 
 def merge_heads(x_eff, logdecay, bmat, cmat):
@@ -175,7 +191,8 @@ def mamba2_mixer(p, x, cfg, state=None, engine: Optional[str] = None):
     stand for L steps (the reference reads step 0 and broadcasts it).
     """
     b_sz, l, _ = x.shape
-    di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_head_dim
+    nh, hd = heads(p), cfg.ssm_head_dim
+    di = nh * hd
     if state is not None and l != 1:
         raise ValueError(f"mamba2_mixer with a state takes one step, got "
                          f"L={l}; run the full sequence without a state")
@@ -209,8 +226,8 @@ def mamba2_mixer(p, x, cfg, state=None, engine: Optional[str] = None):
         new_state = {"ssm": h, "conv": conv_tail}
     y = y + p.d_skip[None, None, :, None] * xh.float()
     y = y.reshape(b_sz, l, di)
-    y = rmsnorm(y.to(x.dtype) * F.silu(z), p.gate_gamma, cfg.norm_eps)
-    return y @ p.out_proj, new_state
+    y = SH.tp_rmsnorm(y.to(x.dtype) * F.silu(z), p.gate_gamma, cfg.norm_eps)
+    return SH.tp_psum(y @ p.out_proj), new_state
 
 
 class Mamba2(ParamTree):
@@ -225,11 +242,15 @@ class Mamba2(ParamTree):
         return mamba2_mixer(self, x, self.cfg, state=state, engine=engine)
 
 
-def init_mamba2_state(cfg, batch: int, dtype=torch.float32, device=None):
+def init_mamba2_state(cfg, batch: int, dtype=torch.float32, device=None,
+                      model: int = 1):
+    """One layer's decode state: ``ssm`` (B, nh, N, P) in f32 and the conv
+    tail (B, K−1, di + 2N); with ``model`` = M > 1 a rank's, over its
+    nh/M heads and di/M + 2N channels."""
     return {
-        "ssm": torch.zeros(batch, cfg.ssm_nheads, cfg.ssm_state,
+        "ssm": torch.zeros(batch, cfg.ssm_nheads // model, cfg.ssm_state,
                            cfg.ssm_head_dim, device=device),
         "conv": torch.zeros(batch, cfg.ssm_conv - 1,
-                            cfg.d_inner + 2 * cfg.ssm_state, dtype=dtype,
-                            device=device),
+                            cfg.d_inner // model + 2 * cfg.ssm_state,
+                            dtype=dtype, device=device),
     }

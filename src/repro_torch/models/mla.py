@@ -8,7 +8,11 @@ rope_hd) floats per token per layer instead of 2·H·hd.
 
 As in the port's `attention`, ``cache_pos`` is an int or a (B,) tensor
 of per-row cursors (the batcher decodes every slot in one call), and the
-cache is written in place.
+cache is written in place.  The head count comes from the weights'
+widths: under a mesh with a ``model`` extent M > 1 (`models/shardings.py`)
+``p`` holds the rank's heads of wuq/wuk/wuv and its rows of wo, whose
+partial product is summed over ``model``; the latent path (wdq, wdkv,
+wkr) and the ``ckv``/``kr`` cache are whole on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.models import shardings as SH
 from repro_torch.models.attention import cache_slots
 from repro_torch.models.layers import (apply_rope, causal_mask, normal,
                                        rmsnorm, rope_freqs)
@@ -46,8 +51,8 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
     into the query and the output: attention works in the kv_lora space
     and never builds the (Smax, h, dn) keys or (Smax, h, dv) values."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    h = p.wuk.shape[1] // dn
     cq = rmsnorm(x @ p.wdq, p.q_gamma, cfg.norm_eps)
     q = (cq @ p.wuq).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
@@ -80,7 +85,7 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
         w = torch.softmax(logits, -1).to(ckv_all.dtype)
         ctx = torch.einsum("bhqk,bkl->bqhl", w, ckv_all)       # (b,1,h,lora)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, wuv).reshape(b, s, h * dv)
-        return out @ p.wo, cache
+        return SH.tp_psum(out @ p.wo), cache
     k_nope = (ckv_all @ p.wuk).reshape(b, kv_len, h, dn)
     v = (ckv_all @ p.wuv).reshape(b, kv_len, h, dv)
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
@@ -89,4 +94,4 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
     logits = logits.masked_fill(~mask, -1e30)
     w = torch.softmax(logits, -1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, h * dv)
-    return out @ p.wo, cache
+    return SH.tp_psum(out @ p.wo), cache

@@ -296,24 +296,36 @@ def expert_placement(gate_idx: np.ndarray, n_experts: int, n_shards: int,
     return np.asarray(order, dtype=np.int64)
 
 
+def _placed_block(w: torch.Tensor, perm: np.ndarray, mesh) -> torch.Tensor:
+    """The rank's block of a placed expert stack: slot ``lo + i`` holds
+    expert ``perm[lo + i]``, whose weights lie on rank ``perm // E_loc``.
+    Each rank's block goes to the others in turn, as a psum of it and
+    zeros (a broadcast in SPMD), so the transient memory is one block."""
+    e_loc = w.shape[0]
+    j = mesh.axis_index("model")
+    want = np.asarray(perm)[j * e_loc:(j + 1) * e_loc]
+    out = torch.empty_like(w)
+    for src in range(mesh.extent("model")):
+        buf = w.clone() if src == j else torch.zeros_like(w)
+        mesh.psum(buf, "model")
+        mine = np.flatnonzero(want // e_loc == src)
+        if len(mine):
+            out[torch.as_tensor(mine, device=w.device)] = buf[
+                torch.as_tensor(want[mine] % e_loc, device=w.device)]
+    return out
+
+
 def place_experts(p, perm: np.ndarray, mesh=None) -> ParamTree:
     """The MoE parameters ``p`` with a placement permutation applied to
     the stacked expert weights and the router's columns.  With a
     ``mesh`` whose ``model`` extent M > 1, ``p`` holds the rank's
-    experts: each stack is gathered whole over ``model``, permuted, and
-    the rank keeps its block of the placed stack (transient memory: one
-    whole stack)."""
+    experts, and the rank keeps the experts of its slots of the placed
+    stack (`_placed_block`)."""
     out = dict(p.named_parameters())
     idx = torch.as_tensor(perm, device=p.router.device)
     m = SH.model_extent(mesh)
     for name in ("w_gate", "w_up", "w_down"):
-        w = out[name]
-        if m > 1:
-            e_loc = w.shape[0]
-            lo = mesh.axis_index("model") * e_loc
-            out[name] = mesh.all_gather(w, "model")[idx][lo:lo + e_loc] \
-                .clone()
-        else:
-            out[name] = w[idx]
+        out[name] = (_placed_block(out[name], perm, mesh) if m > 1
+                     else out[name][idx])
     out["router"] = out["router"][:, idx]
     return ParamTree(out)

@@ -16,6 +16,16 @@ and raises otherwise: the reference's stateful step reads only token 0's
 r, k, v and broadcasts one output row (and the channel mix's previous
 token) over all L positions, which is wrong for L > 1, so the port's
 ``prefill_step`` runs rwkv6 prompts token by token.
+
+Under a mesh with a ``model`` extent M > 1 (`models/shardings.py`) the
+widths come from the weights: the time mix holds the rank's H/M heads
+(column blocks of wr, wk, wv, wg; its channels of w0, w2, u and
+ln_gamma; rows of wo), runs the WKV on them, norms over all of d with
+`shardings.tp_rmsnorm` and sums its output over ``model``; the channel
+mix holds column blocks of wr and wk and a row block of wv, sums the
+value product over ``model`` and gathers the receptance.  Both mixes
+read the whole (replicated) normed input, so ``prev``/``prev_cm`` stay
+whole and only ``wkv`` is per head.
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import pad_to
-from repro_torch.models.layers import normal, rmsnorm
+from repro_torch.models import shardings as SH
+from repro_torch.models.layers import normal
 from repro_torch.models.mamba2 import chunk_states
 
 LORA = 64              # rank of the decay's data-dependent term
@@ -120,7 +131,7 @@ def rwkv6_time_mix(p, x, cfg, state=None):
     ``tmix`` keys.  state: dict(prev=(B, d), wkv=(B, H, N, P)) for one
     decode step (L == 1); returns (y, new_state), new_state None without
     a state.  The new ``prev`` is the step's (normed) input."""
-    b, _, d = x.shape
+    b = x.shape[0]
     hd = cfg.ssm_head_dim
     xs = _shifted(x, None if state is None else state["prev"],
                   "rwkv6_time_mix")
@@ -135,6 +146,7 @@ def rwkv6_time_mix(p, x, cfg, state=None):
     g = F.silu(mix(p.mu_g) @ p.wg)
     logw = -torch.exp(p.w0 + (torch.tanh(mix(p.mu_w) @ p.w1).float()
                               @ p.w2.float()))       # (B, L, d), negative
+    d = r.shape[-1]                                  # the rank's channels
     logw = logw.clamp(LOGW_MIN, -1e-4)
     if state is None:
         y = _wkv_chunked(r.float(), k.float(), v.float(), logw, p.u, hd)
@@ -150,8 +162,8 @@ def rwkv6_time_mix(p, x, cfg, state=None):
         y = y.reshape(b, 1, d)
         new_state = {"prev": x[:, 0].float(),
                      "wkv": ww[..., None] * wkv + kv}
-    y = rmsnorm(y.to(x.dtype), p.ln_gamma, cfg.norm_eps) * g
-    return y @ p.wo, new_state
+    y = SH.tp_rmsnorm(y.to(x.dtype), p.ln_gamma, cfg.norm_eps) * g
+    return SH.tp_psum(y @ p.wo), new_state
 
 
 def rwkv6_channel_mix(p, x, state=None):
@@ -160,15 +172,17 @@ def rwkv6_channel_mix(p, x, state=None):
     without a state."""
     xs = _shifted(x, state, "rwkv6_channel_mix")
     dx = xs - x
-    r = torch.sigmoid((x + dx * p.mu_r) @ p.wr)
+    r = SH.tp_gather(torch.sigmoid((x + dx * p.mu_r) @ p.wr), -1)
     hid = torch.square(torch.relu((x + dx * p.mu_k) @ p.wk))
-    return r * (hid @ p.wv), (None if state is None else x[:, 0].float())
+    return r * SH.tp_psum(hid @ p.wv), \
+        (None if state is None else x[:, 0].float())
 
 
-def init_rwkv6_state(cfg, batch: int, device=None) -> dict:
+def init_rwkv6_state(cfg, batch: int, device=None, model: int = 1) -> dict:
     """One layer's decode state, all f32: ``prev`` and ``prev_cm``
-    (B, d), ``wkv`` (B, H, N, P)."""
-    h = cfg.d_model // cfg.ssm_head_dim
+    (B, d), ``wkv`` (B, H, N, P); with ``model`` = M > 1 a rank's, its
+    H/M heads of ``wkv``."""
+    h = cfg.d_model // cfg.ssm_head_dim // model
     hd = cfg.ssm_head_dim
     return {
         "prev": torch.zeros(batch, cfg.d_model, device=device),

@@ -32,12 +32,40 @@ port instead keeps, on each rank, the KV heads its query heads read
 through the GQA group, replicated across the ranks that share them
 (`kv_heads_local`); `cache_specs` still gives the reference's spec.
 
+The other places where the explicit layout departs from the specs, each
+because a spec's contiguous block of a fused or per-channel leaf is not
+what the rank's heads read (GSPMD reshards such a leaf where it is used;
+an explicit layout must hold the right columns from the start):
+
+* Mamba2 (`_mamba_block`): ``in_proj`` is ``[z | x | B | C | dt]`` along
+  its columns.  The rank holds its slice of ``z``, of ``x`` and of
+  ``dt`` (its heads) and *all* of ``B`` and ``C``, which every head
+  reads; ``conv_w``/``conv_b`` likewise hold the rank's ``x`` channels
+  and all ``B``/``C`` channels, and the conv state (``cache_specs``:
+  channels over model) is di/M + 2N channels wide.  ``B``/``C`` are thus
+  computed on every rank (2N of the rank's 2·di/M + 2N + nh/M columns).
+  The gated norm runs over all of ``di``: `tp_rmsnorm`.
+* rwkv6: the spec replicates ``w0``, ``w2``, ``u`` and ``ln_gamma``;
+  the rank holds the columns of its heads of each (the decay's LoRA
+  ``w1`` stays whole: its 64-wide product is computed on every rank and
+  ``w2`` maps it to the rank's channels).  The time mix's output norm
+  runs over all of ``d`` (`tp_rmsnorm`).  The channel mix's ``wv``
+  (dff, d) is split by rows, not by the spec's output columns, so the
+  column-parallel ``wk``'s hidden units need no gather; its receptance
+  ``wr`` stays in column blocks and ``r`` is gathered over ``model``
+  (`tp_gather`), where a replicated ``wr`` would cost d² per rank.
+* MLA: the rank's heads of ``wuq``, ``wuk``, ``wuv`` and rows of
+  ``wo``, as the specs say; ``wdq``, ``wdkv``, ``wkr`` and both norms'
+  gains are whole, and so are the ``ckv``/``kr`` caches, which every
+  head reads (``cache_specs`` splits ``ckv``'s kv_lora over model).
+
 What the port runs reads one description: `tp_block` keeps the
 ``model`` entries of `leaf_spec` (the spec `param_specs` gives each
-leaf), with the one KV-head exception above written in
-`kv_heads_local`, which `models/transformer.init_caches` also reads.
-`param_specs`, `cache_specs`, `batch_spec` and `constrain_moe_buffers`
-(and `launch.mesh.make_production_mesh`) are there for parity with the
+leaf), with the exceptions above written in `kv_heads_local`,
+`_mamba_block` and `_SPLIT_DIM`; `models/transformer.init_caches` sizes
+the caches by the same rules.  `param_specs`, `cache_specs`,
+`batch_spec` and `constrain_moe_buffers` (and
+`launch.mesh.make_production_mesh`) are there for parity with the
 reference and to count its per-rank bytes; the forward does not call
 them.
 
@@ -53,6 +81,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.mesh import check_mesh
+from repro_torch.models.layers import rmsnorm
 
 _CURRENT_MESH = None
 
@@ -308,24 +337,25 @@ def data_extent(mesh) -> int:
 
 
 def check_tp(cfg, m: int) -> None:
-    """Raise unless ``cfg``'s family runs tensor-parallel over ``m``
-    ranks: the dense, vlm and non-MLA MoE decoders, with query heads that
-    ``m`` divides and KV heads that either ``m`` divides or that each
-    rank's query heads share one of."""
+    """Raise unless ``cfg`` runs tensor-parallel over ``m`` ranks: ``m``
+    must divide the query heads (the attention families), Mamba2's SSM
+    heads (hybrid), rwkv6's heads (d_model / head size) and the experts,
+    and the KV heads must either split over ``m`` or be shared by each
+    rank's query heads."""
     if m == 1:
         return
-    if cfg.family in ("hybrid", "ssm", "audio") or cfg.is_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over model={m} covers the "
-            f"dense, vlm and MoE decoders without MLA; Mamba2, rwkv6, "
-            f"whisper and MLA are queued in ROADMAP.md")
-    if cfg.n_heads % m:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not "
-                         f"split over model={m}")
-    if cfg.n_experts % m:
-        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
-                         f"split over model={m}")
-    kv_heads_local(cfg, m)
+    heads = {"query heads": 0 if cfg.family == "ssm" else cfg.n_heads,
+             "experts": cfg.n_experts}
+    if cfg.family == "hybrid":
+        heads["SSM heads"] = cfg.ssm_nheads
+    if cfg.family == "ssm":
+        heads["rwkv6 heads"] = cfg.d_model // cfg.ssm_head_dim
+    for what, n in heads.items():
+        if n % m:
+            raise ValueError(f"{cfg.name}: {n} {what} do not split over "
+                             f"model={m}")
+    if cfg.family != "ssm":
+        kv_heads_local(cfg, m)
 
 
 def kv_heads_local(cfg, m: int) -> int:
@@ -343,26 +373,78 @@ def kv_heads_local(cfg, m: int) -> int:
     return 1
 
 
+#: (parent, leaf) → the dim that ``model`` splits where the explicit
+#: layout departs from the leaf's spec (module docstring): rwkv6's
+#: per-channel decay terms and output norm by the rank's heads, the
+#: channel mix's ``wv`` by rows
+_SPLIT_DIM = {("tmix", "w0"): 0, ("tmix", "w2"): 1, ("tmix", "u"): 0,
+              ("tmix", "ln_gamma"): 0, ("cmix", "wv"): 0}
+
+
+def _segments(t: torch.Tensor, sizes, split, m: int, j: int) -> torch.Tensor:
+    """The columns of ``t``'s last dim that rank ``j`` of ``m`` holds:
+    ``t`` is cut into segments of ``sizes``; of each segment whose
+    ``split`` is true the rank keeps its block, of the others all."""
+    parts = []
+    for seg, cut in zip(t.split(list(sizes), -1), split):
+        if cut:
+            if seg.shape[-1] % m:
+                raise ValueError(f"a segment of {seg.shape[-1]} columns "
+                                 f"does not split into {m} blocks")
+            w = seg.shape[-1] // m
+            seg = seg[..., j * w:(j + 1) * w]
+        parts.append(seg)
+    return torch.cat(parts, -1)
+
+
+def _mamba_block(name: str, t: torch.Tensor, cfg, m: int, j: int):
+    """Rank ``j`` of ``m``'s block of the Mamba2 leaf ``name`` where it is
+    not one contiguous block (module docstring), else None: ``in_proj``'s
+    columns [z, x, B, C, dt] as (its z, its x, all B and C, its dt);
+    ``conv_w``/``conv_b``'s channels [x, B, C] as (its x, all B and C)."""
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    if name == "in_proj":
+        return _segments(t, (di, di, 2 * n, nh), (True, True, False, True),
+                         m, j)
+    if name in ("conv_w", "conv_b"):
+        return _segments(t, (di, 2 * n), (True, False), m, j)
+    return None
+
+
 def tp_block(path: str, t: torch.Tensor, cfg, mesh) -> torch.Tensor:
     """The rank's block of the whole parameter ``t`` (``path`` its
     ``state_dict`` name, or the name without the layer index) in the
     tensor-parallel layout: the ``model`` entries of its spec (column
-    blocks of wq/wk/wv, w_gate/w_up, ws_gate/ws_up; row blocks of wo,
-    w_down, ws_down; the rank's experts; the rank's vocab rows of embed
-    and columns of lm_head), and for wk/wv whose heads ``model`` does not
-    divide, the KV head of the rank's query heads."""
+    blocks of wq/wk/wv, w_gate/w_up, ws_gate/ws_up, MLA's wuq/wuk/wuv,
+    rwkv6's wr/wk/wv/wg; row blocks of wo, w_down, ws_down, out_proj;
+    the rank's experts, SSM heads' a_log/dt_bias/d_skip and gate_gamma
+    channels; the rank's vocab rows of embed and columns of lm_head); for
+    wk/wv whose heads ``model`` does not divide, the KV head of the
+    rank's query heads; and the departures of the module docstring
+    (`_mamba_block`, `_SPLIT_DIM`)."""
     m = model_extent(mesh)
     if m == 1:
         return t
-    name = path.rsplit(".", 1)[-1]
-    if name in ("wk", "wv") and cfg.n_kv_heads % m:
+    keys = path.split(".")
+    name = keys[-1]
+    parent = keys[-2] if len(keys) > 1 else ""
+    j = mesh.axis_index("model")
+    if parent == "mamba":
+        blk = _mamba_block(name, t, cfg, m, j)
+        if blk is not None:
+            return blk
+    if (name in ("wk", "wv") and parent in ("attn", "xattn")
+            and cfg.n_kv_heads % m):
         kv_heads_local(cfg, m)
-        j = (mesh.axis_index("model") * (cfg.n_heads // m)
-             // (cfg.n_heads // cfg.n_kv_heads))
-        return t[:, j * cfg.hd:(j + 1) * cfg.hd].clone()
-    spec = tuple("model" if e == "model" else None
-                 for e in leaf_spec(path, t.dim(), mesh.axis_names))
-    return local_block(t, spec, mesh)
+        k = j * (cfg.n_heads // m) // (cfg.n_heads // cfg.n_kv_heads)
+        return t[:, k * cfg.hd:(k + 1) * cfg.hd].clone()
+    if (parent, name) in _SPLIT_DIM:
+        spec = [None] * t.dim()
+        spec[_SPLIT_DIM[parent, name]] = "model"
+    else:
+        spec = ["model" if e == "model" else None
+                for e in leaf_spec(path, t.dim(), mesh.axis_names)]
+    return local_block(t, tuple(spec), mesh)
 
 
 def tp_psum(x: torch.Tensor) -> torch.Tensor:
@@ -380,3 +462,21 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     if model_extent(mesh) == 1:
         return x
     return mesh.all_gather(x, "model", dim=dim)
+
+
+def tp_rmsnorm(x: torch.Tensor, gamma_local: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """`layers.rmsnorm` over a width that ``model`` splits: ``x`` and
+    ``gamma_local`` hold the rank's slice of the channels, the sum of
+    squares is summed over ``model`` and divided by the global width (the
+    local one times the ``model`` extent).  At an extent of 1 it is
+    `rmsnorm` itself."""
+    mesh = _CURRENT_MESH
+    m = model_extent(mesh)
+    if m == 1:
+        return rmsnorm(x, gamma_local, eps)
+    dt = x.dtype
+    xf = x.float()
+    ss = mesh.psum((xf * xf).sum(-1, keepdim=True).contiguous(), "model")
+    xf = xf * torch.rsqrt(ss / (xf.shape[-1] * m) + eps)
+    return (xf * (1.0 + gamma_local.float())).to(dt)

@@ -17,14 +17,16 @@
             (``enc_frames``), and decoder blocks with cross-attention to
             its output, whose K/V are cached (``xk``/``xv``) at prefill
 
-Under a mesh (``shardings.use_mesh``) whose ``model`` extent M > 1, the
-dense, vlm and non-MLA MoE families run tensor-parallel, Megatron-style:
-each rank holds the blocks that `shardings.tp_block` gives it (heads,
-FFN hidden and the shared expert in column / row blocks, its experts, its
-vocab rows), sums each row-parallel product over ``model``, looks up
-only its vocab rows of the embedding, and gathers the logits' vocab
-slices; the caller passes the rank's rows of the batch.  With no mesh or
-M = 1 nothing changes.  ``remat`` recomputes
+Under a mesh (``shardings.use_mesh``) whose ``model`` extent M > 1, every
+family runs tensor-parallel, Megatron-style: each rank holds the blocks
+that `shardings.tp_block` gives it (attention and MLA heads, FFN hidden
+and the shared expert in column / row blocks, its experts, its Mamba2
+and rwkv6 heads, its vocab rows), sums each row-parallel product over
+``model``, norms a split width over ``model`` (`shardings.tp_rmsnorm`),
+looks up only its vocab rows of the embedding, and gathers the logits'
+vocab slices; the residual stream, and whisper's encoder output, are
+whole on every rank, and the caller passes the rank's rows of the batch.
+With no mesh or M = 1 nothing changes.  ``remat`` recomputes
 each decoder block, Mamba layer and encoder block in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
@@ -115,17 +117,24 @@ def _mlp(p, x, cfg):
     return SH.tp_psum(swiglu(x, p.w_gate, p.w_up, p.w_down))
 
 
+def _kept(keep, prefix: str, tree: dict) -> dict:
+    """Each leaf of a freshly drawn ``tree`` through ``keep``, named
+    ``prefix.<key>`` (the transient memory is the one sub-tree)."""
+    return {k: keep(f"{prefix}.{k}", v) for k, v in tree.items()}
+
+
 def _init_block(gen: torch.Generator, cfg, dtype, zeros,
                 cross: bool = False, keep=whole) -> dict:
     d = cfg.d_model
     p = {"ln1": zeros(d)}
     if cfg.family == "ssm":
-        p["tmix"] = R6.init_rwkv6(gen, cfg, dtype)
+        p["tmix"] = _kept(keep, "tmix", R6.init_rwkv6(gen, cfg, dtype))
         p["ln2"] = zeros(d)
-        p["cmix"] = R6.init_rwkv6_channel_mix(gen, cfg, dtype)
+        p["cmix"] = _kept(keep, "cmix",
+                          R6.init_rwkv6_channel_mix(gen, cfg, dtype))
         return p
-    p["attn"] = (MLA.init_mla(gen, cfg, dtype) if cfg.is_mla
-                 else A.init_attn(gen, cfg, dtype, keep))
+    p["attn"] = (_kept(keep, "attn", MLA.init_mla(gen, cfg, dtype))
+                 if cfg.is_mla else A.init_attn(gen, cfg, dtype, keep))
     p["ln2"] = zeros(d)
     if cfg.is_moe:
         p["moe"] = MOE.init_moe(gen, cfg, dtype, keep)
@@ -246,17 +255,19 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
         tree["lm_head"] = keep("lm_head", normal(gen, (d, cfg.vocab_pad),
                                                  0.02, dtype))
     if cfg.family == "hybrid":
-        tree["blocks"] = [{"ln1": zeros(d),
-                           "mamba": M2.init_mamba2(gen, cfg, dtype)}
-                          for _ in range(cfg.n_layers)]
-        tree["shared"] = {"ln1": zeros(d), "attn": A.init_attn(gen, cfg, dtype),
-                          "ln2": zeros(d), "mlp": _init_mlp(gen, cfg, dtype)}
+        tree["blocks"] = [{"ln1": zeros(d), "mamba": _kept(
+            keep, "mamba", M2.init_mamba2(gen, cfg, dtype))}
+            for _ in range(cfg.n_layers)]
+        tree["shared"] = {"ln1": zeros(d),
+                          "attn": A.init_attn(gen, cfg, dtype, keep),
+                          "ln2": zeros(d),
+                          "mlp": _init_mlp(gen, cfg, dtype, keep)}
     else:
         tree["blocks"] = [_init_block(gen, cfg, dtype, zeros,
                                       cross=cfg.enc_layers > 0, keep=keep)
                           for _ in range(cfg.n_layers)]
     if cfg.enc_layers:
-        tree["enc_blocks"] = [_init_block(gen, cfg, dtype, zeros)
+        tree["enc_blocks"] = [_init_block(gen, cfg, dtype, zeros, keep=keep)
                               for _ in range(cfg.enc_layers)]
         tree["enc_final_gamma"] = zeros(d)
     model = cls(cfg, tree)
@@ -280,13 +291,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     With a ``mesh`` (on its rank's device), ``batch`` is the global batch:
     the rank's caches hold its rows of the batch (split over every data
     axis, as `shardings.cache_specs` places them) and, over ``model``,
-    the KV heads its query heads read (`shardings.kv_heads_local`; where
-    ``model`` does not divide them, `cache_specs` splits head_dim
-    instead).  A batch that the data axes do not divide (the
-    reference's sequence-parallel caches) raises."""
+    the KV heads its query heads read, self- and cross-attention alike
+    (`shardings.kv_heads_local`; where ``model`` does not divide them,
+    `cache_specs` splits head_dim instead), its Mamba2 heads' ``ssm`` and
+    its x channels with all B/C channels of ``conv``, its rwkv6 heads'
+    ``wkv``; ``prev``/``prev_cm`` and MLA's ``ckv``/``kr`` are whole
+    (`models/shardings.py`).  A batch that the data axes do not divide
+    (the reference's sequence-parallel caches) raises."""
     _require_ported(cfg)
     dev = device_of(mesh, device)
-    kv_heads = cfg.n_kv_heads
+    kv_heads, m = cfg.n_kv_heads, 1
     if mesh is not None:
         m = SH.model_extent(mesh)
         SH.check_tp(cfg, m)
@@ -297,24 +311,23 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 f"{SH.fsdp_axes(mesh.axis_names)} ({dsz} ranks): the "
                 f"sequence-parallel caches are queued in ROADMAP.md")
         batch //= dsz
-        kv_heads = SH.kv_heads_local(cfg, m) if m > 1 else kv_heads
+        if m > 1 and cfg.family != "ssm":
+            kv_heads = SH.kv_heads_local(cfg, m)
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     if cfg.family == "hybrid":
-        kv = (cfg.n_layers // cfg.attn_every, batch, max_len, cfg.n_kv_heads,
+        kv = (cfg.n_layers // cfg.attn_every, batch, max_len, kv_heads,
               cfg.hd)
-        return {
-            "attn": {"k": zeros(*kv), "v": zeros(*kv)},
-            "ssm": zeros(cfg.n_layers, batch, cfg.ssm_nheads, cfg.ssm_state,
-                         cfg.ssm_head_dim, dt=torch.float32),
-            "conv": zeros(cfg.n_layers, batch, cfg.ssm_conv - 1,
-                          cfg.d_inner + 2 * cfg.ssm_state),
-        }
+        out = {"attn": {"k": zeros(*kv), "v": zeros(*kv)}}
+        out.update({name: torch.stack([t] * cfg.n_layers) for name, t in
+                    M2.init_mamba2_state(cfg, batch, dtype, dev, m).items()})
+        return out
     if cfg.family == "ssm":
         return {name: torch.stack([t] * cfg.n_layers) for name, t in
-                R6.init_rwkv6_state(cfg, batch, device=dev).items()}
+                R6.init_rwkv6_state(cfg, batch, device=dev,
+                                    model=m).items()}
     if cfg.is_mla:
         return {"ckv": zeros(cfg.n_layers, batch, max_len, cfg.kv_lora),
                 "kr": zeros(cfg.n_layers, batch, max_len, cfg.rope_head_dim)}
@@ -323,7 +336,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.enc_layers:
         xkv = (cfg.n_layers, batch,
                cfg.enc_positions if enc_len is None else enc_len,
-               cfg.n_kv_heads, cfg.hd)
+               kv_heads, cfg.hd)
         out["xk"], out["xv"] = zeros(*xkv), zeros(*xkv)
     return out
 
@@ -358,8 +371,7 @@ def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
         a, _ = A.attention(sh.attn, rmsnorm(x, sh.ln1, cfg.norm_eps), cfg,
                            positions, cache=kv, cache_pos=cache_pos)
         x = x + a
-        h2 = rmsnorm(x, sh.ln2, cfg.norm_eps)
-        x = x + swiglu(h2, sh.mlp.w_gate, sh.mlp.w_up, sh.mlp.w_down)
+        x = x + _mlp(sh.mlp, rmsnorm(x, sh.ln2, cfg.norm_eps), cfg)
     return x
 
 

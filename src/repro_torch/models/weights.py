@@ -85,8 +85,9 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None,
     embeddings are untied, on ``device`` (None = CUDA).  ``blocks`` is
     split along ``n_layers``, the encoder's ``enc_blocks`` along
     ``enc_layers``.  With a ``mesh`` (on its rank's device) the rank
-    keeps its tensor-parallel block of each leaf, as
-    ``transformer.init_params(..., mesh=)`` does."""
+    keeps its tensor-parallel block of each leaf (`shardings.tp_block`
+    given the leaf's path, e.g. ``blocks.mamba.in_proj``), as
+    ``transformer.init_params(..., mesh=)`` does, for every family."""
     cls = model_class(cfg)
     dev = device_of(mesh, device)
     keep, m = tp_keeper(cfg, mesh)

@@ -23,12 +23,18 @@ Slot isolation:
     before it can ever be read.
 
 Everything runs on the device the model's parameters live on, under
-``torch.no_grad()``.  Telemetry is opt-in via ``telemetry=``
+``torch.no_grad()``.  With a ``mesh`` (``data`` extent 1) the model holds
+the rank's tensor-parallel blocks (``init_params(..., mesh=)``): every
+rank runs the batcher on the same requests, its caches hold every slot
+and the rank's heads (``init_caches(..., mesh=)``), the reused slot's
+state is zeroed on those local shapes, and each step runs under
+``shardings.use_mesh(mesh)``.  Telemetry is opt-in via ``telemetry=``
 (`obs.live.ServeTelemetry`); the default `NULL_TELEMETRY` makes every
 hook a no-op.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import shardings as SH
 from repro_torch.models import transformer as T
 from repro_torch.obs.live import NULL_TELEMETRY
 from repro_torch.serve.serve_step import (decode_step, greedy_token,
@@ -66,20 +73,29 @@ class Request:
 
 class ContinuousBatcher:
     def __init__(self, model, cfg: ArchConfig, batch_slots: int,
-                 max_len: int, telemetry=None):
+                 max_len: int, telemetry=None, mesh=None):
+        if SH.data_extent(mesh) != 1:
+            raise NotImplementedError(
+                f"the batcher keeps every slot on every rank: a mesh with "
+                f"data axes of {SH.data_extent(mesh)} ranks is not served")
         self.model = model
         self.cfg = cfg
         self.b = batch_slots
         self.max_len = max_len
         self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
         self.device = model.embed.device
+        self.mesh = mesh
         self.caches = T.init_caches(cfg, batch_slots, max_len,
                                     dtype=model.embed.dtype,
-                                    device=self.device)
+                                    device=self.device, mesh=mesh)
         self.pos = np.zeros(batch_slots, dtype=np.int64)
         self.budget = np.zeros(batch_slots, dtype=np.int64)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.last_tok = np.zeros((batch_slots, 1), dtype=np.int32)
+
+    def _on_mesh(self):
+        return (contextlib.nullcontext() if self.mesh is None
+                else SH.use_mesh(self.mesh))
 
     # -- slot cache views ----------------------------------------------------
     def _slot_view(self, s: int) -> dict:
@@ -116,8 +132,9 @@ class ContinuousBatcher:
                         view[name].zero_()
                 toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                        device=self.device)
-                lg, _ = prefill_step(self.model, self.cfg, toks[None], view,
-                                     stepwise=True)
+                with self._on_mesh():
+                    lg, _ = prefill_step(self.model, self.cfg, toks[None],
+                                         view, stepwise=True)
                 req.logits = lg[0]
                 # reading the token waits for the card, so the hook after
                 # it times the prefill's work, not only its launches
@@ -143,10 +160,11 @@ class ContinuousBatcher:
             return []
         tele = self.telemetry
         t0 = time.perf_counter() if tele.enabled else 0.0
-        logits, _ = decode_step(
-            self.model, self.cfg,
-            torch.as_tensor(self.last_tok, device=self.device),
-            self.caches, torch.as_tensor(self.pos, device=self.device))
+        with self._on_mesh():
+            logits, _ = decode_step(
+                self.model, self.cfg,
+                torch.as_tensor(self.last_tok, device=self.device),
+                self.caches, torch.as_tensor(self.pos, device=self.device))
         nxt = greedy_token(logits).cpu().numpy()
         finished = []
         for s in active:
@@ -172,20 +190,20 @@ class ContinuousBatcher:
 def serve_stream(model, cfg: ArchConfig,
                  stream: Sequence[Tuple[int, Sequence[int], int]],
                  batch_slots: int = 4, max_len: int = 128,
-                 telemetry=None) -> List[Request]:
+                 telemetry=None, mesh=None) -> List[Request]:
     """Replay a request stream through the batcher until drained.
 
     ``stream``: (arrival_tick, prompt, max_new) triples; a tick is one
     batched decode step, so bursty traces interleave arrivals with decode
-    progress exactly like a live server.  Returns the Requests in stream
-    order.
+    progress exactly like a live server.  ``mesh``: as
+    `ContinuousBatcher`'s.  Returns the Requests in stream order.
     """
     tele = telemetry if telemetry is not None else NULL_TELEMETRY
     reqs = [Request(i, np.asarray(p, np.int32), mn)
             for i, (_, p, mn) in enumerate(stream)]
     arrivals = sorted(range(len(reqs)), key=lambda i: (stream[i][0], i))
     batcher = ContinuousBatcher(model, cfg, batch_slots, max_len,
-                                telemetry=tele)
+                                telemetry=tele, mesh=mesh)
     queue: List[Request] = []
     tick = 0
     i = 0

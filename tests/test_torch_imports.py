@@ -242,6 +242,55 @@ def test_world_of_one_runs_without_torch_distributed():
     assert out.stdout.startswith("ok")
 
 
+def test_four_families_under_a_local_mesh_run_with_jax_and_reference_blocked():
+    """The tensor-parallel code paths of the hybrid, MLA, audio and ssm
+    families (`shardings.tp_rmsnorm`, the segment splits, the gathered
+    receptance, the batcher on a mesh) at a ``model`` extent of 1, with
+    jax, `repro` and ``torch.distributed`` blocked: a forward, a decode
+    step and a served request each, equal to no mesh."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        sys.modules["torch.distributed"] = None
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        from repro_torch.configs.base import get_config
+        from repro_torch.core.mesh import Mesh
+        from repro_torch.models import shardings as SH
+        from repro_torch.models import transformer as T
+        from repro_torch.serve.batching import serve_stream
+        from repro_torch.serve.serve_step import decode_step, prefill_step
+        local = Mesh.local(("data", "model"), device="cpu")
+        for arch in ("zamba2_2p7b", "deepseek_v2_236b", "whisper_medium",
+                     "rwkv6_7b"):
+            cfg = get_config(arch).reduced()
+            model = T.init_params(cfg, 0, mesh=local)
+            toks = torch.arange(12).reshape(2, 6) % cfg.vocab
+            fr = (torch.ones(2, cfg.enc_positions, cfg.d_model) * 0.1
+                  if cfg.enc_layers else None)
+            runs = []
+            for mesh in (None, local):
+                with torch.no_grad(), SH.use_mesh(mesh):
+                    lg = T.forward(model, cfg, toks, enc_frames=fr)[0]
+                    c = T.init_caches(cfg, 2, 8, device="cpu", mesh=mesh)
+                    last, _ = prefill_step(model, cfg, toks[:, :5], c,
+                                           enc_frames=fr)
+                    step, _ = decode_step(model, cfg, toks[:, 5:], c, 5)
+                reqs = serve_stream(model, cfg, [(0, [1, 2], 2)],
+                                    batch_slots=1, max_len=8, mesh=mesh)
+                runs.append((lg, last, step, reqs[0].out))
+            (a, b) = runs
+            assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+            assert a[3] == b[3] and len(a[3]) == 2, arch
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 def test_examples_run_with_jax_and_reference_blocked(tmp_path):
     """The quickstart, serving and training examples run on the CPU with
     jax and `repro` blocked (the other two are imported); each writes

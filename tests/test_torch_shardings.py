@@ -198,11 +198,16 @@ def test_tp_block_keeps_the_query_heads_kv_head():
 
 
 def test_families_without_a_tensor_parallel_form_raise():
-    for arch in ("zamba2_2p7b", "rwkv6_7b", "whisper_medium",
-                 "deepseek_v2_236b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SH.check_tp(get_config(arch).reduced(), 4)
+    """Every family has a tensor-parallel form where ``model`` splits its
+    heads: only a split that does not divide raises (rwkv6's reduced
+    config has 2 heads; `tests/test_torch_tp_families.py` holds the
+    rest)."""
+    for arch in ("zamba2_2p7b", "whisper_medium", "deepseek_v2_236b"):
+        SH.check_tp(get_config(arch).reduced(), 4)
         SH.check_tp(get_config(arch).reduced(), 1)
+    with pytest.raises(ValueError, match="rwkv6 heads"):
+        SH.check_tp(get_config("rwkv6_7b").reduced(), 4)
+    SH.check_tp(get_config("rwkv6_7b").reduced(), 2)
     with pytest.raises(ValueError, match="query heads"):
         SH.check_tp(get_config("minicpm_2b").reduced(), 3)
     for arch in ("minicpm_2b", "gemma2_9b", "starcoder2_15b",

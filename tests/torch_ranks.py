@@ -618,6 +618,235 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
     return out
 
 
+# -- the four remaining families across ranks -----------------------------------
+
+#: the tensor-parallel forward, prefill and decode of the hybrid (zamba2),
+#: MLA MoE (deepseek-v2), audio (whisper) and ssm (rwkv6) families at
+#: their reduced configs: rwkv6's has 2 heads, so it runs on (2, 2)
+FAM_ARCHS = ("zamba2_2p7b", "deepseek_v2_236b", "whisper_medium",
+             "rwkv6_7b")
+FAM_RUNS = [(a, "22" if a == "rwkv6_7b" else "14") for a in FAM_ARCHS]
+FAM_B, FAM_S, FAM_STEPS = 4, 16, 3
+#: deepseek-v2's moe_ffn_a2a alone: reduced (8 experts, top-2, 1 shared
+#: expert) at capacity factor 1.25, on (1, 4) and (2, 2)
+DS_ARCH, DS_MESHES = "deepseek_v2_236b", ("14", "22")
+#: the batcher on a rank: a stream of 5 requests through 2 slots (slots
+#: reused) of zamba2 on (1, 4), and of an rwkv6 of 4 heads (d_model 128:
+#: the reduced config's 2 heads do not split over 4 ranks) on (1, 4)
+SERVE_STREAM = [(0, [3, 9, 4], 3), (0, [7, 1], 4), (1, [5, 5, 2, 8], 2),
+                (2, [6], 3), (2, [2, 4, 6, 1, 3], 2)]
+
+
+def serve_config(arch: str, get_config):
+    """The config of the batcher job: rwkv6 widened to 4 heads."""
+    import dataclasses
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, d_model=128) if arch == "rwkv6_7b" \
+        else cfg
+
+
+def family_inputs() -> dict:
+    """The reference's weights (``init_params`` at PRNGKey(0), deepseek-v2's
+    ``init_moe`` at PRNGKey(4)), seeded tokens, whisper's frames and
+    deepseek-v2's MoE activations."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config
+    from repro.models import moe as rM
+    from repro.models import transformer as rT
+    rng = np.random.default_rng(13)
+    out = {}
+    for arch in FAM_ARCHS:
+        cfg = get_config(arch).reduced()
+        out.update(flat_tree(jax.tree.map(np.asarray, rT.init_params(
+            cfg, jax.random.PRNGKey(0))), f"w/{arch}"))
+        out[f"tok/{arch}"] = rng.integers(0, cfg.vocab, (FAM_B, FAM_S)) \
+            .astype(np.int32)
+        if cfg.enc_layers:
+            out[f"frames/{arch}"] = rng.standard_normal(
+                (FAM_B, cfg.enc_positions, cfg.d_model)).astype(np.float32)
+    cfg = get_config(DS_ARCH).reduced()
+    out.update(flat_tree(jax.tree.map(np.asarray, rM.init_moe(
+        jax.random.PRNGKey(4), cfg, jnp.float32)), "moe"))
+    out["moe_x"] = rng.standard_normal((MOE_B, MOE_S, cfg.d_model)) \
+        .astype(np.float32)
+    return out
+
+
+def ref_families(inp: dict) -> dict:
+    """The JAX package under ``shardings.use_mesh`` of each `FAM_RUNS`
+    mesh on 4 fake devices: the forward (whisper with its frames), a
+    prefill of FAM_S − FAM_STEPS tokens and FAM_STEPS teacher-forced
+    decode steps.  The hybrid and ssm families prefill through
+    ``decode_step`` one token at a time (the reference's one-forward
+    prefill reads only token 0's state inputs on them, ``ROADMAP.md``
+    queue 3); whisper prefills with its frames.  Then deepseek-v2's
+    ``moe_ffn_a2a`` on each `DS_MESHES` mesh."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config
+    from repro.models import moe as rM
+    from repro.models import shardings as rSH
+    from repro.models import transformer as rT
+    from repro.serve import serve_step as rS
+    out = {}
+    p0 = FAM_S - FAM_STEPS
+    for arch, name in FAM_RUNS:
+        cfg = get_config(arch).reduced()
+        params = jax.tree.map(jnp.asarray, nest_tree(inp, f"w/{arch}"))
+        toks = jnp.asarray(inp[f"tok/{arch}"])
+        kw = ({"enc_frames": jnp.asarray(inp[f"frames/{arch}"])}
+              if cfg.enc_layers else {})
+        dec = jax.jit(lambda p, t, c, pos: rS.decode_step(p, cfg, t, c,
+                                                          pos))
+        with rSH.use_mesh(_jax_mesh(TP_MESHES[name])):
+            out[f"fwd/{arch}/{name}"] = np.asarray(jax.jit(
+                lambda p, t, kw: rT.forward(p, cfg, t, **kw)[0])(
+                    params, toks, kw))
+            caches = rT.init_caches(cfg, FAM_B, FAM_S)
+            if cfg.family in ("hybrid", "ssm"):
+                for i in range(p0):
+                    lg, caches = dec(params, toks[:, i:i + 1], caches,
+                                     jnp.int32(i))
+            else:
+                lg, caches = jax.jit(
+                    lambda p, t, c, kw: rS.prefill_step(p, cfg, t, c, **kw))(
+                        params, toks[:, :p0], caches, kw)
+            steps = [lg]
+            for i in range(FAM_STEPS):
+                lg, caches = dec(params, toks[:, p0 + i:p0 + i + 1], caches,
+                                 jnp.int32(p0 + i))
+                steps.append(lg)
+            out[f"dec/{arch}/{name}"] = np.stack(
+                [np.asarray(a) for a in steps], 1)
+    cfg = get_config(DS_ARCH).reduced()
+    p = jax.tree.map(jnp.asarray, nest_tree(inp, "moe"))
+    ffn = jax.jit(lambda p, x: rM.moe_ffn_a2a(p, x, cfg))
+    for name in DS_MESHES:
+        with rSH.use_mesh(_jax_mesh(TP_MESHES[name])):
+            out[f"a2a/{name}"] = np.asarray(ffn(p, inp["moe_x"]))
+    out["moe_ffn"] = np.asarray(rM.moe_ffn(p, jnp.asarray(inp["moe_x"]),
+                                           cfg))
+    return out
+
+
+def _serve_on_rank(torch, T, SH, B, cfg, mesh, dev) -> dict:
+    """`SERVE_STREAM` through the batcher with 2 slots on ``mesh`` and
+    without a mesh (the rank's whole model, seed 2): tokens and each
+    request's prefill logits.  On the mesh, slot 0's position-free state
+    is set to 7 before every prefill into it, which the batcher's reset
+    must undo for the two runs to agree."""
+    out = {}
+    for key, m in (("mesh", mesh), ("none", None)):
+        model = T.init_params(cfg, 2, device=dev, mesh=m)
+        real = B.ContinuousBatcher._slot_view
+
+        def poisoned(self, s, real=real):
+            view = real(self, s)
+            if s == 0 and self.mesh is not None:
+                for name in B.UNPOSITIONED:
+                    if name in view:
+                        view[name].fill_(7.0)
+            return view
+
+        B.ContinuousBatcher._slot_view = poisoned
+        try:
+            reqs = B.serve_stream(model, cfg, SERVE_STREAM, batch_slots=2,
+                                  max_len=16, mesh=m)
+        finally:
+            B.ContinuousBatcher._slot_view = real
+        out[f"{key}/tokens"] = np.asarray([t for r in reqs for t in r.out])
+        out[f"{key}/logits"] = torch.stack([r.logits for r in reqs]) \
+            .cpu().numpy()
+    return out
+
+
+def rank_families(rank: int, world: int, inp: dict, dev: str) -> dict:
+    """The port's side of `ref_families`, each rank on its rows, with the
+    collectives of one forward and the caches' shapes; deepseek-v2's
+    ``moe_ffn_a2a``; the batcher on a rank (`_serve_on_rank`); and the
+    sharded init of each family against the unsharded model's blocks."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, ALL_TO_ALL, Mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.serve import batching as B
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    meshes = {name: Mesh.world(("data", "model"), shape, device=dev)
+              for name, shape in TP_MESHES.items()}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    out = {}
+    counts = (ALL_REDUCE, ALL_GATHER, ALL_TO_ALL)
+    p0 = FAM_S - FAM_STEPS
+    for arch, name in FAM_RUNS:
+        cfg = get_config(arch).reduced()
+        mesh = meshes[name]
+        rows = _rows(mesh, FAM_B)
+        model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg,
+                                device=dev, mesh=mesh)
+        toks = t(inp[f"tok/{arch}"][rows])
+        frames = (t(inp[f"frames/{arch}"][rows]) if cfg.enc_layers
+                  else None)
+        with torch.no_grad(), SH.use_mesh(mesh):
+            before = {c: obs.metrics.get(c) for c in counts}
+            out[f"fwd/{arch}/{name}"] = T.forward(
+                model, cfg, toks, enc_frames=frames)[0].cpu().numpy()
+            out[f"calls/{arch}/{name}"] = np.asarray(
+                [obs.metrics.get(c) - before[c] for c in counts])
+            caches = T.init_caches(cfg, FAM_B, FAM_S, device=dev, mesh=mesh)
+            steps = [prefill_step(model, cfg, toks[:, :p0], caches,
+                                  enc_frames=frames)[0]]
+            for i in range(FAM_STEPS):
+                steps.append(decode_step(model, cfg,
+                                         toks[:, p0 + i:p0 + i + 1], caches,
+                                         p0 + i)[0])
+            out[f"dec/{arch}/{name}"] = torch.stack(steps, 1).cpu().numpy()
+        for key, c in leaves(caches):
+            out[f"cache/{arch}/{key}"] = np.asarray(c.shape)
+    cfg = get_config(DS_ARCH).reduced()
+    whole = {k: t(v) for k, v in nest_tree(inp, "moe").items()}
+    for name in DS_MESHES:
+        mesh = meshes[name]
+        p = ParamTree({k: SH.tp_block(f"moe.{k}", v, cfg, mesh)
+                       for k, v in whole.items()})
+        with torch.no_grad(), SH.use_mesh(mesh):
+            out[f"a2a/{name}"] = M.moe_ffn_a2a(
+                p, t(inp["moe_x"][_rows(mesh, MOE_B)]), cfg).cpu().numpy()
+    for arch in ("zamba2_2p7b", "rwkv6_7b"):
+        cfg = serve_config(arch, get_config)
+        with torch.no_grad():
+            for key, a in _serve_on_rank(torch, T, SH, B, cfg, meshes["14"],
+                                         dev).items():
+                out[f"serve/{arch}/{key}"] = a
+    for arch, name in FAM_RUNS:
+        cfg = get_config(arch).reduced()
+        mesh = meshes[name]
+        full = T.init_params(cfg, 5, device=dev)
+        out[f"init_equal/{arch}"] = np.asarray(all(
+            torch.equal(q, SH.tp_block(n, full.get_parameter(n), cfg, mesh))
+            for n, q in T.init_params(cfg, 5, device=dev, mesh=mesh)
+            .named_parameters()))
+    return out
+
+
+def leaves(tree, prefix=""):
+    """(``a/b`` key, leaf) pairs of a nested dict of tensors."""
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from leaves(v, key)
+        else:
+            yield key, v
+
+
 # -- the port on 4 cards against its 4 CPU ranks --------------------------------
 
 JOBS = ("rank_parhip", "rank_parhyp", "rank_memetic", "rank_stack")

@@ -2,12 +2,13 @@
 """The port's decoder stack across 4 cards: tensor and expert parallelism
 over ``model``, data parallelism over ``data``.
 
-    python3 tools/serve_torch_sharded.py [--out DIR]
+    python3 tools/serve_torch_sharded.py [--out DIR] [--modes M,M,...]
     python3 tools/serve_torch_sharded.py --device cpu    # a CPU rehearsal
 
 starts 4 ranks of itself, rank r on card r, joined through NCCL by a
 ``file://`` store under ``--out`` (as ``tests/torch_ranks.py`` joins its
-ranks; no network), and runs, each model freed before the next:
+ranks; no network), and runs the ``--modes`` (default: all, in the order
+below), each model freed before the next:
 
 ``cut``   llama4-scout at full width, 2 layers, capacity factor 8 (nothing
           drops): the forward at B = 1, L = 2048 on the (data 1, model 4)
@@ -34,12 +35,31 @@ ranks; no network), and runs, each model freed before the next:
           and 3 timed steps each, tokens/s; the 4 replicas' parameters
           bit for bit equal after the steps (a MIN and a MAX over the
           ranks of every tensor).
+``deepseek_cut`` deepseek-v2 at full width, 2 layers, capacity factor 8,
+          as ``cut`` (B = 1, L = 2048).
+``deepseek`` deepseek-v2 at full width (MLA with 128 heads, 160 experts of
+          1536, top-6, 2 shared) on (1, 4), as many of its 60 layers as
+          leave 15 GB of each card free (`fitting_depth`: the per-rank
+          bytes of 1 and 2 layers under ``FakeTensorMode``): as
+          ``llama4`` (the placement of 160 experts onto the 4 ranks runs
+          kernel 1, its launches counted), the forward at B = 1, L = 2048.
+``zamba2``, ``rwkv6``, ``whisper`` each model whole at full width on
+          (1, 4): the forward (B = 2, L = 2048; whisper on 1500 frames
+          and 448 tokens) against rank 0's one-card forward within 1e-4
+          of max |logits|, the forward's figures, and a 64-token prefill
+          (token by token for zamba2 and rwkv6, with the frames for
+          whisper) + 16 greedy decode steps against the forward within
+          2e-3.  zamba2 also counts its SSD calls (54 grouped calls of
+          heads = 20 on each rank) and holds layer 0's per-rank scan
+          against ``ref.ssd_scan_grouped_ref`` within 3e-4 (abs + rel,
+          the tolerance of tests/test_kernels.py).
 
 Rank 0 prints what it measured, with each card's name and power limit;
 the last line is one JSON object of every rank's results, also written to
 ``--out``/result.json.  Exits non-zero when a check fails or a rank dies.
 With ``--device cpu`` the ranks join with gloo and run the ``reduced()``
-configs at small shapes.  Imports nothing of jax or of the JAX package.
+configs at small shapes (rwkv6's widened to d_model 128: its 2 heads do
+not split over 4 ranks).  Imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
@@ -61,14 +81,21 @@ TIMEOUT = 1500            # seconds, the whole run
 COLLECTIVE_TIMEOUT = 180  # seconds, one collective
 LLAMA, INTERNVL, MINICPM = ("llama4_scout_17b_a16e", "internvl2_26b",
                             "minicpm_2b")
-# (the card's sizes, the CPU rehearsal's sizes)
+DEEPSEEK, ZAMBA2, RWKV6, WHISPER = ("deepseek_v2_236b", "zamba2_2p7b",
+                                    "rwkv6_7b", "whisper_medium")
+# (the card's sizes, the CPU rehearsal's sizes); ``dec_tokens``: whisper's
+# decoder tokens beside its encoder frames
 SIZES = {
     "cuda": dict(depth=24, cut_depth=2, fwd=(2, 2048), cut_fwd=(1, 2048),
-                 calib=510, prompt=64, steps=16, dp_seq=2048, dp_timed=3),
+                 calib=510, prompt=64, steps=16, dp_seq=2048, dp_timed=3,
+                 ds_fwd=(1, 2048), dec_tokens=448),
     "cpu": dict(depth=4, cut_depth=2, fwd=(2, 32), cut_fwd=(1, 32),
-                calib=30, prompt=8, steps=4, dp_seq=32, dp_timed=2),
+                calib=30, prompt=8, steps=4, dp_seq=32, dp_timed=2,
+                ds_fwd=(1, 32), dec_tokens=16),
 }
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FREE_BYTES = 15e9              # what deepseek's depth leaves free per card
+SSD_TOL = 3e-4                 # tests/test_kernels.py's abs + rel
 
 
 class Failed(RuntimeError):
@@ -101,6 +128,9 @@ class Rank:
         self.dp = Mesh.world(("data", "model"), (WORLD, 1), device=dev)
         self.out = {}
         self.gen = torch.Generator(device=self.dev).manual_seed(7)
+        #: the cards' names and power limits, on rank 0 of a CUDA run
+        self.card = "; ".join(card_lines()) if self.cuda and rank == 0 \
+            else "cpu"
 
     def log(self, msg: str) -> None:
         if self.rank == 0:
@@ -131,7 +161,14 @@ class Rank:
         cfg = get_config(arch)
         if not self.cuda:
             cfg = cfg.reduced()
+            if arch == RWKV6:
+                cfg = dataclasses.replace(cfg, d_model=128)
         return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+    def peaks(self) -> list:
+        """Every rank's peak memory, in rank order."""
+        mine = self.torch.tensor([self.peak()], device=self.dev)
+        return self.dp.all_gather(mine).tolist()
 
     def tokens(self, cfg, *shape):
         return self.torch.randint(0, cfg.vocab, shape, generator=self.gen,
@@ -155,61 +192,79 @@ def rel(torch, got, want) -> float:
 
 
 def counted(r: Rank, fn):
-    """(fn(), the mesh collectives it issued on this rank)."""
+    """(fn(), the mesh collectives and SSD scan calls it issued on this
+    rank)."""
     from repro_torch import obs
     from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, ALL_TO_ALL
-    names = (ALL_TO_ALL, ALL_REDUCE, ALL_GATHER)
+    from repro_torch.kernels.ssd_scan import LAUNCHES
+    names = (ALL_TO_ALL, ALL_REDUCE, ALL_GATHER, LAUNCHES)
     before = {n: obs.metrics.get(n) for n in names}
     out = fn()
     return out, {n.split("/")[1]: int(obs.metrics.get(n) - before[n])
                  for n in names}
 
 
-def phase_cut(r: Rank) -> None:
-    """2 layers at capacity factor 8: 4 ranks against one card."""
+def against_one_card(r: Rank, cfg, toks, frames=None):
+    """The forward on (data 1, model 4) of the model made sharded from
+    seed 0 against rank 0's unsharded one-card forward from the same seed,
+    within 1e-4 of max |logits|; returns the sharded model."""
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
-    torch, s = r.torch, r.sizes
-    cfg = dataclasses.replace(r.config(LLAMA, s["cut_depth"]),
-                              capacity_factor=8.0)
-    toks = r.tokens(cfg, *s["cut_fwd"])
+    torch = r.torch
     want = None
     if r.rank == 0:
         with torch.no_grad():
             model = T.init_params(cfg, 0, device=r.dev)
-            want = T.forward(model, cfg, toks)[0]
+            want = T.forward(model, cfg, toks, enc_frames=frames)[0]
         del model
     r.tp.agree(True)                 # rank 0's card is free again
     r.reset_peak()
     model = T.init_params(cfg, 0, mesh=r.tp)
     with torch.no_grad(), SH.use_mesh(r.tp):
-        got = T.forward(model, cfg, toks)[0]
+        got = T.forward(model, cfg, toks, enc_frames=frames)[0]
     err = 0.0
     if r.rank == 0:
         err = rel(torch, got, want)
-        r.out["cut_rel"] = err
-        r.log(f"{cfg.name} {cfg.n_layers} layers, capacity factor 8, B="
-              f"{toks.shape[0]} L={toks.shape[1]}: 4 ranks (data 1, model 4) "
-              f"vs one card: max |err| / max |logits| {err:g} (max 1e-4)")
-    r.check(err <= 1e-4, f"the 4-rank forward differs from one card: {err}")
+        cf = (f", capacity factor {cfg.capacity_factor:g}" if cfg.is_moe
+              else "")
+        r.log(f"{cfg.name} {cfg.n_layers} layers{cf}, B={toks.shape[0]} "
+              f"L={toks.shape[1]}"
+              f"{'' if frames is None else f' + {frames.shape[1]} frames'}:"
+              f" 4 ranks (data 1, model 4) vs one card: max |err| / max "
+              f"|logits| {err:g} (max 1e-4) [{r.card}]")
+    r.check(err <= 1e-4, f"{cfg.name}: the 4-rank forward differs from one "
+            f"card: {err}")
+    return model, err
 
 
-def decode_check(r: Rank, model, cfg, prefix=None) -> dict:
-    """A prompt prefill and greedy decode steps at capacity factor 8
-    against the forward over the same tokens; returns the figures."""
+def phase_cut(r: Rank, arch: str = LLAMA, key: str = "cut_rel") -> None:
+    """``arch`` (a MoE), 2 layers at capacity factor 8: 4 ranks against
+    one card."""
+    s = r.sizes
+    cfg = dataclasses.replace(r.config(arch, s["cut_depth"]),
+                              capacity_factor=8.0)
+    _, r.out[key] = against_one_card(r, cfg, r.tokens(cfg, *s["cut_fwd"]))
+
+
+def decode_check(r: Rank, model, cfg, prefix=None, frames=None) -> dict:
+    """A prompt prefill (with the vlm's prefix or the audio's frames) and
+    greedy decode steps at capacity factor 8 against the forward over the
+    same tokens; returns the figures."""
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     from repro_torch.serve.serve_step import decode_step, prefill_step
     torch, s = r.torch, r.sizes
     cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
-    b = 1 if prefix is None else prefix.shape[0]
+    b = next((a.shape[0] for a in (prefix, frames) if a is not None), 1)
     prompt = r.tokens(cfg, b, s["prompt"])
     n_pre = 0 if prefix is None else prefix.shape[1]
     with torch.no_grad(), SH.use_mesh(r.tp):
         caches = T.init_caches(cfg8, b, n_pre + s["prompt"] + s["steps"],
-                               device=r.dev, mesh=r.tp)
+                               device=r.dev, mesh=r.tp,
+                               enc_len=None if frames is None
+                               else frames.shape[1])
         lg, _ = prefill_step(model, cfg8, prompt, caches,
-                             prefix_embeds=prefix)
+                             prefix_embeds=prefix, enc_frames=frames)
         got, fed, walls = [lg], [], []
         for i in range(s["steps"]):
             tok = lg.argmax(-1)[:, None]
@@ -219,100 +274,176 @@ def decode_check(r: Rank, model, cfg, prefix=None) -> dict:
             fed.append(tok)
             walls.append(wall)
         seq = torch.cat([prompt] + fed, 1)
-        want = T.forward(model, cfg8, seq, prefix_embeds=prefix)[0][
-            :, n_pre + s["prompt"] - 1:]
+        want = T.forward(model, cfg8, seq, prefix_embeds=prefix,
+                         enc_frames=frames)[0][:, n_pre + s["prompt"] - 1:]
     err = rel(torch, torch.stack(got, 1), want)
     weight = sum(p.numel() * p.element_size() for p in model.parameters())
     walls.sort()
     res = {"decode_rel": err, "decode_ms_median": walls[len(walls) // 2] * 1e3,
            "decode_ms_min": walls[0] * 1e3,
            "decode_bound_ms": weight / PEAK_BYTES_PER_S * 1e3}
+    how = ("" if prefix is None else f" after {n_pre} prefix embeddings"
+           ) + ("" if frames is None else f" with {frames.shape[1]} frames")
     r.log(f"{cfg.name} decode on 4 ranks: prefill of {s['prompt']} tokens"
-          f"{'' if prefix is None else f' after {n_pre} prefix embeddings'}"
+          f"{how}{' token by token' if cfg.family in ('hybrid', 'ssm') else ''}"
           f" + {s['steps']} greedy steps vs the forward at capacity factor "
           f"8: rel {err:g} (max 2e-3); ms per step median "
           f"{res['decode_ms_median']:.3f} (min {res['decode_ms_min']:.3f}) "
           f"against the rank's weight-read bound "
-          f"{res['decode_bound_ms']:.3f} ms")
+          f"{res['decode_bound_ms']:.3f} ms [{r.card}]")
     r.check(err <= 2e-3, f"{cfg.name}: decode differs from the forward: "
             f"{err}")
     return res
 
 
-def forward_figures(r: Rank, model, cfg, prefix=None) -> dict:
-    """The timed forward at ``fwd`` (after a warm-up): wall, peak memory
-    per rank, the collectives of one forward."""
+def forward_figures(r: Rank, model, cfg, prefix=None, frames=None,
+                    shape=None) -> dict:
+    """The timed forward at ``shape`` (default ``fwd``; after a warm-up):
+    wall, every rank's peak memory, the collectives and SSD calls of one
+    forward."""
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     torch, s = r.torch, r.sizes
-    b, l = s["fwd"]
+    b, l = shape or s["fwd"]
     toks = r.tokens(cfg, b, l)
+    kw = {"prefix_embeds": prefix, "enc_frames": frames}
     with torch.no_grad(), SH.use_mesh(r.tp):
-        T.forward(model, cfg, toks, prefix_embeds=prefix)
+        T.forward(model, cfg, toks, **kw)
         r.reset_peak()
         (logits, calls), wall = r.timed(lambda: counted(
-            r, lambda: T.forward(model, cfg, toks, prefix_embeds=prefix)[0]))
+            r, lambda: T.forward(model, cfg, toks, **kw)[0]))
     n_tok = b * (l + (0 if prefix is None else prefix.shape[1]))
     r.check(logits.shape == (b, n_tok // b, cfg.vocab_pad)
             and bool(torch.isfinite(logits).all()),
             f"{cfg.name}: logits of shape {tuple(logits.shape)}, finite "
             f"{bool(torch.isfinite(logits).all())}")
     weight = sum(p.numel() * p.element_size() for p in model.parameters())
+    peaks = r.peaks()
     res = {"forward_s": wall, "tokens_per_s": n_tok / wall,
-           "peak_bytes": r.peak(), "param_bytes": weight, "calls": calls}
-    r.log(f"{cfg.name} ({cfg.n_layers} layers) forward B={b} L={l}"
-          f"{'' if prefix is None else f' + {prefix.shape[1]} prefix'} on 4 "
-          f"ranks (data 1, model 4): wall_s={wall:.4f} "
+           "peak_bytes": peaks[r.rank], "peak_bytes_by_rank": peaks,
+           "param_bytes": weight, "calls": calls}
+    what = ("" if prefix is None else f" + {prefix.shape[1]} prefix") + (
+        "" if frames is None else f" on {frames.shape[1]} frames")
+    r.log(f"{cfg.name} ({cfg.n_layers} layers) forward B={b} L={l}{what} on "
+          f"4 ranks (data 1, model 4): wall_s={wall:.4f} "
           f"({n_tok / wall:.1f} tokens/s), rank 0's parameters {weight} B "
-          f"({weight / 1e9:.2f} GB), peak {res['peak_bytes']} B "
-          f"({res['peak_bytes'] / 2**30:.2f} GiB), collectives of one "
-          f"forward {json.dumps(calls)}")
+          f"({weight / 1e9:.2f} GB), peak per rank {peaks} B "
+          f"({[round(p / 2**30, 2) for p in peaks]} GiB), collectives and "
+          f"SSD calls of one forward {json.dumps(calls)} [{r.card}]")
     return res
 
 
-def phase_llama4(r: Rank) -> None:
+def placed(r: Rank, model, cfg) -> dict:
+    """The calibration forward (a length the model axis does not divide
+    takes the fallback, which reports each layer's routing to the gate
+    tap), ``expert_placement`` of each layer's gates onto the 4 ranks on
+    rank 0's card (kaffpa; lp_affinity's launches counted from 0), handed
+    to the other ranks by a sum, and ``place_experts`` over the model
+    axis; returns the figures."""
+    from repro_torch import obs
+    from repro_torch.kernels.lp_affinity import LAUNCHES
     from repro_torch.models import moe as MOE
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     torch, s = r.torch, r.sizes
+    gates = []
+    with torch.no_grad(), SH.use_mesh(r.tp), MOE.observe_gates(gates.append):
+        T.forward(model, cfg, r.tokens(cfg, 1, s["calib"]))
+    r.check(len(gates) == cfg.n_layers, f"gate tap: {len(gates)} reports")
+    perms = torch.zeros(cfg.n_layers, cfg.n_experts, dtype=torch.int64,
+                        device=r.dev)
+    wall, launches = 0.0, 0
+    if r.rank == 0:
+        obs.metrics.reset(LAUNCHES)
+        found, wall = r.timed(lambda: [MOE.expert_placement(
+            g, cfg.n_experts, WORLD, seed=1, device=r.dev) for g in gates])
+        launches = int(obs.metrics.get(LAUNCHES))
+        perms.copy_(torch.as_tensor(r.np.stack(found)))
+    perms = r.dp.psum(perms, "data").cpu().numpy()
+    r.check(all(sorted(p) == list(range(cfg.n_experts)) for p in perms),
+            "an expert placement is not a permutation")
+    r.check(not r.cuda or r.rank != 0 or launches > 0,
+            "expert placement launched no lp_affinity kernel")
+    e_loc, loads = cfg.n_experts // WORLD, []
+    for blk, g, perm in zip(model.blocks, gates, perms):
+        blk.moe = MOE.place_experts(blk.moe, perm, r.tp)
+        loads.append([int(r.np.isin(g, perm[j * e_loc:(j + 1) * e_loc]).sum())
+                      for j in range(WORLD)])
+    pairs = s["calib"] * cfg.top_k
+    r.log(f"expert placement of {cfg.n_layers} layers' gates ({s['calib']} "
+          f"calibration tokens, top-{cfg.top_k}) of {cfg.n_experts} experts "
+          f"onto 4 ranks on rank 0's card: {wall:.3f} s (kaffpa, "
+          f"{launches} lp_affinity launches on the card); per-rank loads "
+          f"of layer 0 {loads[0]}, max over layers of the largest rank load "
+          f"{max(max(x) for x in loads)} (even: {pairs / WORLD:g}) "
+          f"[{r.card}]")
+    return {"placement_s": wall, "lp_affinity_launches": launches}
+
+
+def phase_llama4(r: Rank) -> None:
+    from repro_torch.models import transformer as T
+    s = r.sizes
     cfg = r.config(LLAMA, s["depth"])
     r.reset_peak()
     model, secs = r.timed(lambda: T.init_params(cfg, 0, mesh=r.tp))
     r.log(f"{cfg.name}: {cfg.n_layers} of 48 layers made sharded over "
           f"model=4 from seed 0 in {secs:.3f} s (peak while drawing "
           f"{r.peak() / 2**30:.2f} GiB)")
-    # calibration: a length the model axis does not divide takes the
-    # fallback, which reports each layer's routing to the gate tap
-    gates = []
-    with torch.no_grad(), SH.use_mesh(r.tp), MOE.observe_gates(gates.append):
-        T.forward(model, cfg, r.tokens(cfg, 1, s["calib"]))
-    r.check(len(gates) == cfg.n_layers, f"gate tap: {len(gates)} reports")
-    # rank 0 places (kaffpa on its card); a sum over the ranks hands its
-    # permutations to the others
-    perms = torch.zeros(cfg.n_layers, cfg.n_experts, dtype=torch.int64,
-                        device=r.dev)
-    wall = 0.0
-    if r.rank == 0:
-        placed, wall = r.timed(lambda: [MOE.expert_placement(
-            g, cfg.n_experts, WORLD, seed=1, device=r.dev) for g in gates])
-        perms.copy_(torch.as_tensor(r.np.stack(placed)))
-    perms = r.dp.psum(perms, "data").cpu().numpy()
-    r.check(all(sorted(p) == list(range(cfg.n_experts)) for p in perms),
-            "an expert placement is not a permutation")
-    e_loc, loads = cfg.n_experts // WORLD, []
-    for blk, g, perm in zip(model.blocks, gates, perms):
-        blk.moe = MOE.place_experts(blk.moe, perm, r.tp)
-        loads.append([int(r.np.isin(g, perm[j * e_loc:(j + 1) * e_loc]).sum())
-                      for j in range(WORLD)])
-    r.log(f"expert placement of {cfg.n_layers} layers' gates ({s['calib']} "
-          f"calibration tokens) onto 4 ranks on rank 0's card: {wall:.3f} s "
-          f"(kaffpa, lp_affinity on the card); per-rank loads "
-          f"of layer 0 {loads[0]}, max over layers of the largest rank load "
-          f"{max(max(x) for x in loads)} (even: {s['calib'] / WORLD:g})")
+    fig = placed(r, model, cfg)
     res = forward_figures(r, model, cfg)
     res.update(decode_check(r, model, cfg))
-    res["placement_s"] = wall
+    res.update(fig)
     r.out["llama4"] = res
+
+
+def rank_bytes(cfg, n: int, mesh) -> int:
+    """The f32 bytes of the blocks `shardings.tp_block` gives a rank of
+    ``mesh`` (anything with its ``axis_names``, ``extent`` and
+    ``axis_index``) of ``cfg`` cut to ``n`` layers: shapes only, under
+    ``FakeTensorMode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(cfg, n_layers=n)
+    with FakeTensorMode():
+        model = T.init_params(cut, 0, device="cpu")
+        return 4 * sum(SH.tp_block(name, p, cut, mesh).numel()
+                       for name, p in model.named_parameters())
+
+
+def fitting_depth(cfg, mesh, total: int, free: float = FREE_BYTES) -> int:
+    """The most of ``cfg``'s layers whose per-rank f32 parameters leave
+    ``free`` bytes of a card of ``total`` free (`rank_bytes` of 1 and 2
+    layers: every layer holds the same blocks)."""
+    one, two = rank_bytes(cfg, 1, mesh), rank_bytes(cfg, 2, mesh)
+    return min(cfg.n_layers, int((total - free - one) // (two - one)) + 1)
+
+
+def phase_deepseek(r: Rank) -> None:
+    from repro_torch.models import transformer as T
+    s = r.sizes
+    total = (r.torch.cuda.get_device_properties(r.dev).total_memory
+             if r.cuda else 0)
+    full = r.config(DEEPSEEK)
+    depth = fitting_depth(full, r.tp, total) if r.cuda else s["depth"]
+    nbytes = rank_bytes(full, depth, r.tp)
+    cfg = r.config(DEEPSEEK, depth)
+    r.check(depth > 2, f"{cfg.name}: only {depth} layers fit")
+    r.reset_peak()
+    model, secs = r.timed(lambda: T.init_params(cfg, 0, mesh=r.tp))
+    weight = sum(p.numel() * p.element_size() for p in model.parameters())
+    r.check(weight == nbytes, f"{cfg.name}: {weight} B of parameters, "
+            f"sized {nbytes}")
+    r.log(f"{cfg.name}: {depth} of 60 layers ({nbytes} B = "
+          f"{nbytes / 1e9:.2f} GB per rank, leaving "
+          f"{(total - nbytes) / 1e9:.2f} GB of the card's {total} B) made "
+          f"sharded over model=4 from seed 0 in {secs:.3f} s (peak while "
+          f"drawing {r.peak() / 2**30:.2f} GiB) [{r.card}]")
+    fig = placed(r, model, cfg)
+    res = forward_figures(r, model, cfg, shape=s["ds_fwd"])
+    res.update(decode_check(r, model, cfg))
+    res.update(fig, depth=depth)
+    r.out["deepseek"] = res
 
 
 def phase_internvl2(r: Rank) -> None:
@@ -331,6 +462,81 @@ def phase_internvl2(r: Rank) -> None:
     res = forward_figures(r, model, cfg, prefix(s["fwd"][0]))
     res.update(decode_check(r, model, cfg, prefix(1)))
     r.out["internvl2"] = res
+
+
+def ssd_rank_check(r: Rank, model, cfg, toks) -> dict:
+    """Layer 0's per-rank scan (its nheads/4 heads sharing one row of B
+    and C) on the forward's real inputs: ``ops.ssd_scan`` against
+    ``ref.ssd_scan_grouped_ref`` within `SSD_TOL` abs + rel."""
+    import math
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm
+    torch = r.torch
+    blk = model.blocks[0]
+    nh = M2.heads(blk.mamba)
+    with torch.no_grad(), SH.use_mesh(r.tp):
+        x0 = T._embed(model, toks, WORLD) * math.sqrt(cfg.d_model)
+        _, _, x_eff, ld, bmat, cmat, _ = M2.scan_inputs(
+            blk.mamba, rmsnorm(x0, blk.ln1, cfg.norm_eps), cfg)
+    ins = M2.merge_heads(x_eff, ld, bmat, cmat)
+    got = ops.ssd_scan(*ins, heads=nh)
+    want = ref.ssd_scan_grouped_ref(*ins, nh)
+    excess = float(((got - want).abs() - SSD_TOL * want.abs()).max())
+    err = float((got - want).abs().max())
+    r.log(f"ssd_scan on rank 0's layer-0 inputs {tuple(ins[0].shape)} "
+          f"heads={nh}: max |err| {err:g} against ssd_scan_grouped_ref, "
+          f"|err| - {SSD_TOL}|want| at most {excess:g} (max {SSD_TOL}) "
+          f"[{r.card}]")
+    r.check(excess <= SSD_TOL, f"the per-rank SSD scan disagrees: {excess}")
+    return {"ssd_heads": nh, "ssd_max_abs_err": err}
+
+
+def family_mode(r: Rank, arch: str) -> None:
+    """One model whole at full width on (1, 4): against one card, the
+    forward's figures, decode against the forward; zamba2's SSD calls
+    and its per-rank scan."""
+    from repro_torch.kernels import ops
+    torch, s = r.torch, r.sizes
+    cfg = r.config(arch)
+    b, l = s["fwd"]
+    frames = None
+    if cfg.enc_layers:
+        l = s["dec_tokens"]
+        frames = torch.randn(b, cfg.enc_positions, cfg.d_model,
+                             generator=r.gen, device=r.dev)
+    toks = r.tokens(cfg, b, l)
+    model, err = against_one_card(r, cfg, toks, frames)
+    heads, real = [], ops.ssd_scan
+
+    def recording(*args, **kw):
+        heads.append(kw.get("heads"))
+        return real(*args, **kw)
+
+    ops.ssd_scan = recording
+    try:
+        res = forward_figures(r, model, cfg, frames=frames, shape=(b, l))
+    finally:
+        ops.ssd_scan = real
+    res["one_card_rel"] = err
+    if cfg.family == "hybrid":
+        # the kernel engine on a card, the chunked torch engine on the
+        # CPU; ``heads`` holds the warm-up's calls and the timed forward's
+        nh, calls = cfg.ssm_nheads // WORLD, cfg.n_layers if r.cuda else 0
+        r.log(f"{cfg.name}: {len(heads) // 2} ssd_scan calls per forward on "
+              f"rank 0, heads {sorted(set(heads))} (expected {calls} of "
+              f"heads={nh}), {res['calls']['ssd_scan']} counted launches in "
+              f"the timed forward")
+        r.check(heads == [nh] * 2 * calls
+                and res["calls"]["ssd_scan"] == calls,
+                f"{cfg.name}: ssd_scan calls {heads}, launches "
+                f"{res['calls']['ssd_scan']}")
+        res.update(ssd_rank_check(r, model, cfg, toks))
+    res.update(decode_check(r, model, cfg, frames=None if frames is None
+                            else frames[:1]))
+    r.out[arch] = res
 
 
 def train_run(r: Rank, cfg, mesh, shard: int, n_shards: int) -> dict:
@@ -390,7 +596,17 @@ def phase_dp(r: Rank) -> None:
     r.check(same, "the data-parallel replicas' parameters differ")
 
 
-def run_rank(rank: int, store: str, dev: str, out: Path) -> int:
+#: the modes in the order they run (``--modes`` picks some)
+MODES = {"cut": phase_cut, "llama4": phase_llama4,
+         "internvl2": phase_internvl2, "dp": phase_dp,
+         "deepseek_cut": lambda r: phase_cut(r, DEEPSEEK, "deepseek_cut_rel"),
+         "deepseek": phase_deepseek,
+         "zamba2": lambda r: family_mode(r, ZAMBA2),
+         "rwkv6": lambda r: family_mode(r, RWKV6),
+         "whisper": lambda r: family_mode(r, WHISPER)}
+
+
+def run_rank(rank: int, store: str, dev: str, out: Path, modes) -> int:
     import torch
     import torch.distributed as dist
     from repro_torch.launch.ranks import join
@@ -398,8 +614,8 @@ def run_rank(rank: int, store: str, dev: str, out: Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     r = Rank(rank, dev, SIZES["cpu" if dev == "cpu" else "cuda"])
     try:
-        for phase in (phase_cut, phase_llama4, phase_internvl2, phase_dp):
-            phase(r)
+        for mode in modes:
+            MODES[mode](r)
             if r.cuda:
                 torch.cuda.empty_cache()
     finally:
@@ -413,12 +629,18 @@ def main(argv) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--out", default=str(ROOT / "build" /
                                           "serve_torch_sharded"))
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="comma-separated, of " + ", ".join(MODES))
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--store", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     out = Path(args.out).resolve()
+    modes = [m for m in args.modes.split(",") if m]
+    bad = [m for m in modes if m not in MODES]
+    if bad or not modes:
+        ap.error(f"unknown modes {bad}: pick from {', '.join(MODES)}")
     if args.rank is not None:
-        return run_rank(args.rank, args.store, args.device, out)
+        return run_rank(args.rank, args.store, args.device, out, modes)
     if args.device == "cuda":
         import torch
         if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
@@ -434,7 +656,7 @@ def main(argv) -> int:
     store = out / "store"
     codes = spawn(lambda r: [__file__, "--device", args.device, "--out",
                              str(out), "--rank", str(r), "--store",
-                             str(store)],
+                             str(store), "--modes", ",".join(modes)],
                   WORLD, [out / f"rank{r}.log" for r in range(WORLD)],
                   TIMEOUT, store, env=rank_env(ROOT / "src"), echo=0)
     for r, code in enumerate(codes):
