@@ -377,6 +377,24 @@ Phases:
     deepseek-v2 at the depth tools/serve_torch_sharded.py's deepseek mode
     takes on this card (the most of its 60 layers that leave 15 GB
     free): its per-rank bytes under the specs and the port's blocks.
+    The port's blocks are `shardings.rank_block`'s: on (2, 2) each rank
+    also holds its FSDP shard over data.
+57. (Run after phase 55, through the same mesh.) gemma2-9B at full width
+    cut to 2 layers (1.31 B parameters): three train steps of 1 x 2048
+    tokens (remat "full", AdamW/WSD) under ``use_mesh`` of the (1, 1)
+    mesh, on the FSDP + tensor-parallel code path (its gathers and
+    collectives at extents of 1), bit for bit equal to three steps
+    without a mesh; both timed.
+58. (Run after phase 57.) zamba2-2.7B whole at B = 1, max_len 32768:
+    the caches filled from seeded draws to 32752
+    (tools/serve_torch_sharded.py's ``fill_zamba2``), then 16
+    teacher-forced decode steps on the sequence-split cache path
+    (`shardings.SeqSplitCaches`: the owned-position writes, the
+    whole-batch dispatch; a split of one merges nothing) under the
+    (1, 1) mesh, bit for bit equal to the same steps without a mesh,
+    both timed; and ``Mesh.reduce_scatter`` of a (4096, 5120) f32
+    tensor over the data axis of one rank: its input back, timed, one
+    ``mesh/reduce_scatter`` counted per call.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -481,6 +499,8 @@ MESH_FAMILIES = {"zamba2_2p7b": None, "rwkv6_7b": None,
 MESH_FWD = {"zamba2_2p7b": 2048, "rwkv6_7b": 2048, "whisper_medium": 448,
             "deepseek_v2_236b": 1024}
 MESH_PROMPT, MESH_STEPS = 16, 4
+# phases 57-58: gemma2's tokens per train step, zamba2's max_len and steps
+DATA_TRAIN_SEQ, DATA_CP_LEN, DATA_CP_STEPS = 2048, 32768, 16
 
 
 class SmokeError(RuntimeError):
@@ -3110,8 +3130,9 @@ def per_rank_bytes(np, model, cfg, axes, sizes) -> tuple:
     port's explicit layout) of ``model``'s f32 parameters on a mesh of
     ``sizes`` over ``axes``: the specs split each dim over the product of
     their axes' extents (rounded up, as GSPMD pads); the port holds the
-    blocks `shardings.tp_block` gives a rank (split over ``model`` only,
-    with the departures its module docstring lists)."""
+    blocks `shardings.rank_block` gives a rank (its ``model`` block, with
+    the departures the module docstring lists, and its FSDP shard of
+    that over the data axes)."""
     from repro_torch.models import shardings as SH
     ext = dict(zip(axes, sizes))
     rank = RankStandIn(axes, sizes)
@@ -3123,17 +3144,19 @@ def per_rank_bytes(np, model, cfg, axes, sizes) -> tuple:
                               if a is not None])) for e in spec]
         spec_b += 4 * int(np.prod([-(-dim // n)
                                    for dim, n in zip(p.shape, split)]))
-        port_b += 4 * SH.tp_block(name, p, cfg, rank).numel()
+        port_b += 4 * SH.rank_block(name, p, cfg, rank).numel()
     return spec_b, port_b
 
 
 def mesh_phases(torch, np, dev, card) -> None:
-    """Phases 49-51, 55-56: the collectives tensor parallelism adds,
+    """Phases 49-51, 55-58: the collectives tensor parallelism adds,
     through an NCCL group of one; minicpm-2B and llama4-scout (2 layers),
     then zamba2, rwkv6, whisper and deepseek-v2 (2 layers), under a
-    (1, 1) mesh, bit for bit equal to no mesh; the per-rank bytes of the
-    ten archs' specs and of the port's blocks on (1, 4) and (2, 2), and
-    of deepseek-v2 at the 4-card tool's depth."""
+    (1, 1) mesh, bit for bit equal to no mesh; gemma2-9B (2 layers)
+    trained and zamba2 decoded on the sequence-split path under it, bit
+    for bit equal to no mesh, and its reduce-scatter; the per-rank bytes
+    of the ten archs' specs and of the port's blocks on (1, 4) and
+    (2, 2), and of deepseek-v2 at the 4-card tool's depth."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch import obs
@@ -3246,6 +3269,7 @@ def mesh_phases(torch, np, dev, card) -> None:
             check(same_fwd and same_dec,
                   f"{cfg.name}: a (1, 1) mesh changed the logits")
             del model, runs, logits, caches
+        data_axis_phases(torch, np, dev, card, mesh, gen)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3263,8 +3287,8 @@ def mesh_phases(torch, np, dev, card) -> None:
                                              ("data", "model"), sizes)
         log(f"param_specs {cfg.name}: {total} B of f32 parameters; per rank "
             + "; ".join(f"(data {d}, model {m}): specs {sb} B "
-                        f"({sb / 1e9:.2f} GB), the port's model-axis "
-                        f"blocks {pb} B ({pb / 1e9:.2f} GB)"
+                        f"({sb / 1e9:.2f} GB), the port's blocks {pb} B "
+                        f"({pb / 1e9:.2f} GB)"
                         for (d, m), (sb, pb) in rows.items()))
     sys.path.insert(0, str(ROOT / "tools"))
     from serve_torch_sharded import FREE_BYTES, fitting_depth, rank_bytes
@@ -3286,6 +3310,104 @@ def mesh_phases(torch, np, dev, card) -> None:
         f"[{card}]")
     check(port_b == nbytes and depth > 2,
           f"deepseek-v2's sizing: {depth} layers, {port_b} != {nbytes} B")
+
+
+def data_axis_phases(torch, np, dev, card, mesh, gen) -> None:
+    """Phases 57-58 on the NCCL (1, 1) ``mesh``: gemma2-9B (2 layers)
+    trained on the FSDP + tensor-parallel path, zamba2 decoded on the
+    sequence-split cache path, each bit for bit equal to no mesh; the
+    mesh's reduce-scatter."""
+    from repro_torch import obs
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.mesh import REDUCE_SCATTER
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    sys.path.insert(0, str(ROOT / "tools"))
+    from serve_torch_sharded import fill_zamba2
+
+    def under(m):
+        return SH.use_mesh(m) if m is not None else contextlib.nullcontext()
+
+    # -- 57. gemma2-9B (2 layers) trained under the (1, 1) mesh -------------
+    cfg = dataclasses.replace(get_config("gemma2_9b"), n_layers=2)
+    toks = torch.randint(0, cfg.vocab, (3, 1, DATA_TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        model = T.init_params(cfg, seed=0, device=dev, mesh=m)
+        opt = init_opt_state(model)
+        step = make_train_step(cfg, OptConfig(), remat="full")
+        walls, losses = [], []
+        with under(m):
+            for i in range(3):
+                (_, _, met), wall = timed(torch, lambda: step(
+                    model, opt, {"tokens": toks[i]}))
+                walls.append(wall)
+                losses.append(float(met["loss"]))
+        del opt
+        runs[name] = ({n: p.detach() for n, p in model.named_parameters()},
+                      walls, losses)
+        del model
+    same = all(torch.equal(runs["none"][0][n], p)
+               for n, p in runs["mesh"][0].items())
+    flop = 8 * cfg.param_count() * DATA_TRAIN_SEQ      # remat: 8·N·T
+    log(f"{cfg.name} ({cfg.n_layers} layers, full width) 3 train steps of "
+        f"1 x {DATA_TRAIN_SEQ} tokens (remat full, AdamW/WSD, f32) under "
+        f"use_mesh of the NCCL (1, 1) mesh (FSDP + TP path): parameters "
+        f"bit for bit equal to no mesh: {same}; step walls "
+        f"{[round(w, 4) for w in runs['mesh'][1]]} s (no mesh "
+        f"{[round(w, 4) for w in runs['none'][1]]} s), "
+        f"{flop / sorted(runs['mesh'][1])[1] / 1e12:.2f} TFLOP/s at the "
+        f"median (8·N·T = {flop:.3e} FLOP), losses "
+        f"{[round(x, 5) for x in runs['mesh'][2]]} [{card}]")
+    check(same, f"{cfg.name}: a (1, 1) mesh changed the trained weights")
+    del runs
+
+    # -- 58. zamba2 decoded on the sequence-split path, and reduce_scatter --
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2_2p7b")
+    model = T.init_params(cfg, seed=0, mesh=mesh)
+    upto = DATA_CP_LEN - DATA_CP_STEPS
+    toks = torch.randint(0, cfg.vocab, (1, DATA_CP_STEPS), generator=gen,
+                         device=dev)
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        caches = T.init_caches(cfg, 1, DATA_CP_LEN, device=dev, mesh=m)
+        if m is not None:
+            caches = SH.SeqSplitCaches(caches)
+        fill_zamba2(torch, caches, cfg, upto, 4096, 58, m, dev)
+        steps, walls = [], []
+        with torch.no_grad(), under(m):
+            for i in range(DATA_CP_STEPS):
+                (lg, _), wall = timed(torch, lambda: decode_step(
+                    model, cfg, toks[:, i:i + 1], caches, upto + i))
+                steps.append(lg)
+                walls.append(wall)
+        runs[name] = (torch.stack(steps), sorted(walls))
+        del caches
+    same = torch.equal(runs["none"][0], runs["mesh"][0])
+    log(f"{cfg.name} B=1 max_len={DATA_CP_LEN}, caches drawn to {upto}: "
+        f"{DATA_CP_STEPS} decode steps on the sequence-split cache path "
+        f"under the NCCL (1, 1) mesh: logits bit for bit equal to no mesh: "
+        f"{same}; ms per step median "
+        f"{runs['mesh'][1][DATA_CP_STEPS // 2] * 1e3:.3f} (no mesh "
+        f"{runs['none'][1][DATA_CP_STEPS // 2] * 1e3:.3f}) [{card}]")
+    check(same, f"{cfg.name}: the sequence-split path changed the logits")
+    del model, runs
+    x = torch.randn(4096, 5120, generator=gen, device=dev)
+    before = obs.metrics.get(REDUCE_SCATTER)
+    check(torch.equal(mesh.reduce_scatter(x, "data"), x),
+          "reduce_scatter over a data axis of one changed its input")
+    check(obs.metrics.get(REDUCE_SCATTER) == before + 1,
+          "reduce_scatter was not counted once")
+    rs_ms = cuda_ms(torch, lambda: mesh.reduce_scatter(x, "data"), iters=10)
+    log(f"NCCL (1, 1) mesh: reduce_scatter of a (4096, 5120) f32 tensor "
+        f"over data keeps it; {rs_ms:.4f} ms [{card}]")
+    torch.cuda.empty_cache()
 
 
 def decoder_phases(torch, np, dev, card) -> dict:

@@ -19,6 +19,31 @@ The port's counterparts of the JAX package's SPMD pieces:
     the whole mesh or one axis, along any dim.
   * ``jax.lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=False)``
     over one axis — `Mesh.all_to_all` (``dist.all_to_all_single``).
+  * ``jax.lax.psum_scatter(..., tiled=True)`` over one axis —
+    `Mesh.reduce_scatter` (``dist.reduce_scatter_tensor``).
+
+The `Mesh` methods do not differentiate.  The model path calls its
+collectives through the functions at the end of this module, each a
+``torch.autograd.Function`` whose backward is the transpose that jax's
+``shard_map`` gives the collective where its output is read as the
+model reads it:
+
+  * `reduce_from` — psum forward, identity backward: the sum of
+    row-parallel partial products, read the same way on every rank;
+  * `copy_to` — identity forward, psum backward (Megatron's "f"): a
+    replicated activation or leaf entering a split region, whose
+    consumers on each rank give only their part of its gradient;
+  * `reduce_both` — psum both ways: a psum whose output feeds split
+    consumers (``tp_rmsnorm``'s sum of squares);
+  * `gather_from` — all-gather forward, the rank's slice of the
+    cotangent backward: the gathered tensor is read replicated;
+  * `gather_shards` — all-gather over one or more axes forward,
+    reduce-scatter (sum) backward: FSDP's parameter gather, each rank's
+    gradient of the whole tensor summed into the shard's owner;
+  * `exchange` — all-to-all both ways (its own transpose).
+
+Without grad mode, or on a tensor that needs no gradient, each calls the
+`Mesh` method directly (in place where the method is).
 
 Layout: rank r of the group sits at position ``np.unravel_index(r,
 shape)`` (row-major, as a jax ``Mesh`` over ``devices.reshape(shape)``).
@@ -33,7 +58,8 @@ is the identity, as on a 1-device jax mesh.  A mesh with a group calls
 ``torch.distributed`` for every collective, also when the group holds one
 rank: a CUDA mesh's group is NCCL and a CPU mesh's gloo, and a collective
 that fails raises.  Each collective call issued is counted in
-``obs.metrics`` (`ALL_REDUCE`, `ALL_GATHER`, `ALL_TO_ALL`, `PPERMUTE`).
+``obs.metrics`` (`ALL_REDUCE`, `ALL_GATHER`, `ALL_TO_ALL`,
+`REDUCE_SCATTER`, `PPERMUTE`), in a backward pass too.
 
 ``torch.distributed`` is imported where a group is used, never when this
 module is imported.
@@ -51,6 +77,7 @@ from repro_torch.obs import metrics
 ALL_REDUCE = "mesh/all_reduce"
 ALL_GATHER = "mesh/all_gather"
 ALL_TO_ALL = "mesh/all_to_all"
+REDUCE_SCATTER = "mesh/reduce_scatter"
 PPERMUTE = "mesh/ppermute"
 
 
@@ -222,6 +249,28 @@ class Mesh:
         metrics.inc(ALL_TO_ALL)
         return out
 
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum over ``axis`` of every rank's ``x``, of which this rank
+        keeps its block along ``dim`` (block i on the axis's rank i; the
+        dim must split into ``extent(axis)`` blocks)."""
+        self._axis(axis)
+        n = self.extent(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter over {axis!r}: dim {dim} of "
+                             f"{tuple(x.shape)} does not split into {n}")
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+        # reduce_scatter_single is the newer name of reduce_scatter_tensor
+        fn = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        fn(out, xt, group=self._groups[axis])
+        metrics.inc(REDUCE_SCATTER)
+        return out.movedim(0, dim)
+
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """``jax.lax.ppermute`` on a 1-D mesh: for each pair of ``perm``
@@ -273,3 +322,108 @@ def device_of(mesh: Optional[Mesh], device=None) -> torch.device:
     if device is not None and _normal(resolve_device(device)) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     return mesh.device
+
+
+# ---------------------------------------------------------------------------
+# collectives with a backward (module docstring)
+# ---------------------------------------------------------------------------
+
+def _axes(axes) -> tuple:
+    return axes if isinstance(axes, tuple) else (axes,)
+
+
+def _slice(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (the first
+    axis the slowest), as `gather_shards` lays the blocks out."""
+    i, n = 0, 1
+    for a in _axes(axes):
+        i, n = i * mesh.extent(a) + mesh.axis_index(a), n * mesh.extent(a)
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size).contiguous()
+
+
+def _gather(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    for a in reversed(_axes(axes)):
+        x = mesh.all_gather(x, a, dim=dim)
+    return x
+
+
+def _scatter(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    for a in _axes(axes):
+        x = mesh.reduce_scatter(x, a, dim=dim)
+    return x
+
+
+def _psum(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    x = x.contiguous().clone()
+    for a in _axes(axes):
+        mesh.psum(x, a)
+    return x
+
+
+_RULES = {"id": lambda mesh, x, axes, dim: x.view_as(x),
+          "psum": _psum,
+          "gather": _gather,
+          "slice": _slice,
+          "scatter": _scatter,
+          "a2a": lambda mesh, x, axes, dim: mesh.all_to_all(x, axes)}
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd`` of `_RULES` forward, ``bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, fwd, bwd):
+        ctx.rule = (mesh, axes, dim, bwd)
+        return _RULES[fwd](mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, bwd = ctx.rule
+        return _RULES[bwd](mesh, g, axes, dim), None, None, None, None, None
+
+
+def _run(mesh: Mesh, x: torch.Tensor, axes, dim: int, fwd: str,
+         bwd: str, in_place: bool = False) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Collective.apply(x, mesh, axes, dim, fwd, bwd)
+    if in_place:                  # the Mesh method, on x itself
+        x = x.contiguous()
+        for a in _axes(axes):
+            x = mesh.psum(x, a)
+        return x
+    return _RULES[fwd](mesh, x, axes, dim)
+
+
+def reduce_from(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """psum over ``axis``; backward: the identity."""
+    return _run(mesh, x, axis, 0, "psum", "id", in_place=True)
+
+
+def copy_to(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The identity; backward: psum over ``axis``."""
+    return _run(mesh, x, axis, 0, "id", "psum")
+
+
+def reduce_both(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """psum over ``axis``; backward: psum over ``axis``."""
+    return _run(mesh, x, axis, 0, "psum", "psum", in_place=True)
+
+
+def gather_from(mesh: Mesh, x: torch.Tensor, axis: str,
+                dim: int) -> torch.Tensor:
+    """All-gather over ``axis`` along ``dim``; backward: the rank's
+    slice of the cotangent."""
+    return _run(mesh, x, axis, dim, "gather", "slice")
+
+
+def gather_shards(mesh: Mesh, x: torch.Tensor, axes,
+                  dim: int) -> torch.Tensor:
+    """All-gather over ``axes`` (a name or a tuple, the first the
+    slowest) along ``dim``; backward: reduce-scatter (sum) over them."""
+    return _run(mesh, x, axes, dim, "gather", "scatter")
+
+
+def exchange(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """`Mesh.all_to_all` over ``axis``; backward: the same all-to-all."""
+    return _run(mesh, x, axis, 0, "a2a", "a2a")

@@ -10,6 +10,15 @@ batch of slots, each at its own position, runs as one batch dimension
 reference vmaps one slot at a time.  The cache is written in place.  An
 int cursor stays on the host: no position is copied to the card, so a
 step makes no host sync.
+
+Context parallelism (``seq_split``: `shardings.SeqSplitCaches`): data
+rank i holds cache positions i·S … (i+1)·S − 1 of the whole batch, S
+the local length.  A step writes only the positions the rank owns; each
+rank scores its own keys under the causal mask and window taken by
+*global* position (a window crosses rank boundaries), softcaps them, and
+the online-softmax triple is merged over ``data``: the running max by a
+pmax, the exp-sum and the weighted values by one psum.  A split of one
+(a data extent of 1) merges nothing and takes the unsplit path.
 """
 from __future__ import annotations
 
@@ -72,12 +81,15 @@ def _kv_mask(sq, skv, q_offset, window, is_causal, device, lo=0):
 
 
 def _sdpa_online(q, k, v, cap, scale, *, q_offset, window=None,
-                 is_causal=True):
+                 is_causal=True, key_lo=0, merge=None):
     """Flash-style online-softmax attention: a loop over KV blocks carrying
     (running max, normalizer, weighted accumulator).  Peak live buffer is
     O(Sq · KV_BLOCK) instead of O(Sq · Skv).  ``q_offset`` is an int or a
     (B,) tensor of per-row offsets; every block is masked by causality and
-    by ``window`` (None = global), as the reference masks it."""
+    by ``window`` (None = global), as the reference masks it.  ``k``/``v``
+    hold the keys at positions ``key_lo`` onwards; with ``merge`` (a
+    mesh) they are this data rank's share of every rank's keys, and the
+    triple is merged over ``data`` before it is normalised."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     kvh = k.shape[2]
@@ -91,7 +103,8 @@ def _sdpa_online(q, k, v, cap, scale, *, q_offset, window=None,
     acc = torch.zeros((b, kvh, rep, sq, hd), device=dev)
     for bi in range(nb):
         lo, hi = bi * kv_block, min(skv, (bi + 1) * kv_block)
-        msk = _kv_mask(sq, hi - lo, q_offset, window, is_causal, dev, lo)
+        msk = _kv_mask(sq, hi - lo, q_offset, window, is_causal, dev,
+                       key_lo + lo)
         msk = msk.reshape((-1,) + msk.shape[-2:])              # (B|1,Sq,kv)
         s_blk = torch.einsum("bqgrd,bkgd->bgrqk", qg, k[:, lo:hi]).float()
         s_blk = softcap(s_blk * scale, cap)
@@ -103,8 +116,34 @@ def _sdpa_online(q, k, v, cap, scale, *, q_offset, window=None,
         pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype), v[:, lo:hi])
         acc = acc * corr[..., None] + pv.float()
         m = m_new
+    if merge is not None:
+        # a rank whose keys are all masked holds m = -1e30: corr = 0
+        corr = torch.exp(m - merge.pmax(m.clone(), "data"))
+        both = merge.psum(torch.cat([acc * corr[..., None],
+                                     (l * corr)[..., None]], -1), "data")
+        acc, l = both[..., :-1], both[..., -1]
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+def split_slots(cache_pos, s: int, smax: int, mesh) -> tuple:
+    """(q_offset, cols, src, key_lo) of a step of ``s`` tokens at the int
+    ``cache_pos`` into a cache whose ``smax`` positions are this data
+    rank's share of smax·D: the local slice it writes, the slice of the
+    step's tokens that lands there (empty where the rank owns none of
+    them), and the global position of its first key.  The write start is
+    clamped into the global cache as `cache_slots` clamps it."""
+    if torch.is_tensor(cache_pos):
+        raise NotImplementedError(
+            "per-row cursors with sequence-split caches: every row of the "
+            "batch is at one position")
+    key_lo = mesh.axis_index("data") * smax
+    q_offset = int(cache_pos)
+    start = min(max(q_offset, 0), smax * mesh.extent("data") - s)
+    lo = min(max(start, key_lo), key_lo + smax)
+    hi = max(min(start + s, key_lo + smax), lo)
+    return (q_offset, slice(lo - key_lo, hi - key_lo),
+            slice(lo - start, hi - start), key_lo)
 
 
 def cache_slots(cache_pos, b: int, s: int, smax: int, device):
@@ -126,7 +165,8 @@ def cache_slots(cache_pos, b: int, s: int, smax: int, device):
 
 
 def attention(p, x, cfg, positions, *, window=None, is_causal=True,
-              cache=None, cache_pos=None, kv_override=None):
+              cache=None, cache_pos=None, kv_override=None,
+              seq_split=False):
     """Returns (out, cache).  ``p`` holds wq/wk/wv/wo.
 
     positions: (S,) or per row (B, S).  window: the sliding window of a
@@ -142,29 +182,46 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
     ``model`` extent M > 1 (`models/shardings.py`), ``p`` holds the rank's
     column blocks of wq/wk/wv (its query heads and the KV heads they
     read) and its row block of wo, whose partial product is summed over
-    ``model``.
+    ``model``; ``x`` enters that split region through `shardings.
+    tp_enter`.  ``seq_split``: the cache (or ``kv_override``) holds this
+    data rank's share of the positions (module docstring).
     """
     b, s, d = x.shape
     hd = cfg.hd
+    x = SH.tp_enter(x)
     q = (x @ p.wq).reshape(b, s, -1, hd)
     if kv_override is None:
-        k = (x @ p.wk).reshape(b, s, -1, hd)
-        v = (x @ p.wv).reshape(b, s, -1, hd)
+        k = (x @ SH.tp_enter_kv(p.wk, cfg)).reshape(b, s, -1, hd)
+        v = (x @ SH.tp_enter_kv(p.wv, cfg)).reshape(b, s, -1, hd)
         cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     else:
         k, v = kv_override
         is_causal = False
-    q_offset = 0
+    q_offset, key_lo = 0, 0
+    mesh = SH.current_mesh() if seq_split else None
     if cache is not None and kv_override is None:
-        q_offset, rows, cols = cache_slots(cache_pos, b, s,
-                                           cache["k"].shape[1], x.device)
-        cache["k"][rows, cols] = k.to(cache["k"].dtype)
-        cache["v"][rows, cols] = v.to(cache["v"].dtype)
+        if seq_split:
+            q_offset, cols, src, key_lo = split_slots(
+                cache_pos, s, cache["k"].shape[1], mesh)
+            cache["k"][:, cols] = k[:, src].to(cache["k"].dtype)
+            cache["v"][:, cols] = v[:, src].to(cache["v"].dtype)
+        else:
+            q_offset, rows, cols = cache_slots(cache_pos, b, s,
+                                               cache["k"].shape[1], x.device)
+            cache["k"][rows, cols] = k.to(cache["k"].dtype)
+            cache["v"][rows, cols] = v.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
+    elif seq_split:
+        key_lo = mesh.axis_index("data") * k.shape[1]
     scale = 1.0 / math.sqrt(hd)
-    if s * k.shape[1] > ONLINE_THRESHOLD ** 2:
+    if seq_split and mesh.extent("data") > 1:
+        out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
+                           q_offset=q_offset, window=window,
+                           is_causal=is_causal, key_lo=key_lo, merge=mesh)
+    elif s * k.shape[1] > ONLINE_THRESHOLD ** 2:
+        # (a split of one: the rank's keys are all the keys, key_lo = 0)
         out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
                            q_offset=q_offset, window=window,
                            is_causal=is_causal)
@@ -180,6 +237,7 @@ def init_cross_kv(p, enc_out, cfg) -> tuple:
     """Cross-attention K/V (B, F, KV, hd) from the encoder output (B, F,
     d) (whisper)."""
     b, f, _ = enc_out.shape
-    k = (enc_out @ p.wk).reshape(b, f, -1, cfg.hd)
-    v = (enc_out @ p.wv).reshape(b, f, -1, cfg.hd)
+    enc_out = SH.tp_enter(enc_out)
+    k = (enc_out @ SH.tp_enter_kv(p.wk, cfg)).reshape(b, f, -1, cfg.hd)
+    v = (enc_out @ SH.tp_enter_kv(p.wv, cfg)).reshape(b, f, -1, cfg.hd)
     return k, v

@@ -20,7 +20,11 @@ M > 1 (`models/shardings.py`, ``mamba_block``) ``p`` holds the rank's
 nheads/M heads (its columns of z, x and dt in ``in_proj``, all of B and
 C), the scan runs over those heads with B and C shared as everywhere,
 the gated norm reads the whole d_inner through `shardings.tp_rmsnorm`,
-and ``out_proj``'s row block is summed over ``model``.
+and ``out_proj``'s row block is summed over ``model``.  The input enters
+that split region through `shardings.tp_enter`, and so do the B/C
+columns of ``in_proj`` and channels of ``conv_w``/``conv_b``, which
+every rank holds whole but whose gradient each rank's heads give only
+in part (`shardings.tp_enter_cols`).
 """
 from __future__ import annotations
 
@@ -150,9 +154,13 @@ def scan_inputs(p, x, cfg, conv_state=None):
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
     nh = heads(p)
     di = nh * hd
-    zxbcdt = x @ p.in_proj
+    zxbcdt = SH.tp_enter(x) @ SH.tp_enter_cols(p.in_proj, 2 * di,
+                                               2 * di + 2 * n)
     z, xbc, dt = zxbcdt.split([di, di + 2 * n, nh], -1)
-    xbc, conv_tail = _causal_conv(xbc, p.conv_w, p.conv_b, conv_state)
+    xbc, conv_tail = _causal_conv(xbc, SH.tp_enter_cols(p.conv_w, di,
+                                                        di + 2 * n),
+                                  SH.tp_enter_cols(p.conv_b, di, di + 2 * n),
+                                  conv_state)
     xs, bmat, cmat = xbc.split([di, n, n], -1)
     dt = F.softplus(dt.float() + p.dt_bias)                    # (B,L,nh)
     logdecay = -torch.exp(p.a_log) * dt                        # (B,L,nh)
@@ -183,8 +191,9 @@ def merge_heads(x_eff, logdecay, bmat, cmat):
 
 def mamba2_mixer(p, x, cfg, state=None, engine: Optional[str] = None):
     """x: (B,L,d) → (B,L,d).  ``p`` holds the reference's ``mamba`` keys
-    (a `ParamTree` or `Mamba2`).  state: dict(ssm=(B,nh,N,P),
-    conv=(B,K-1,C)) for one decode step (L == 1); returns (y, new_state).
+    (a `ParamTree` or `Mamba2`, or their gathered view).  state:
+    dict(ssm=(B,nh,N,P), conv=(B,K-1,C)) for one decode step (L == 1);
+    returns (y, new_state).
 
     ``engine=None`` is ``"kernel"`` on a CUDA tensor and ``"chunked"`` on
     the CPU.  A state with L != 1 raises: one step's recurrence cannot

@@ -12,7 +12,12 @@ cache is written in place.  The head count comes from the weights'
 widths: under a mesh with a ``model`` extent M > 1 (`models/shardings.py`)
 ``p`` holds the rank's heads of wuq/wuk/wuv and its rows of wo, whose
 partial product is summed over ``model``; the latent path (wdq, wdkv,
-wkr) and the ``ckv``/``kr`` cache are whole on every rank.
+wkr) and the ``ckv``/``kr`` cache are whole on every rank, and the
+latent activations enter the split heads through `shardings.tp_enter`.
+With ``seq_split`` (context parallelism, `models/attention.py`) each
+data rank holds its share of the ``ckv``/``kr`` positions, writes only
+those, scores its own keys, and the softmax is merged over ``data``
+(`_split_softmax`), in the absorbed step and the full path alike.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import math
 import torch
 
 from repro_torch.models import shardings as SH
-from repro_torch.models.attention import cache_slots
+from repro_torch.models.attention import cache_slots, split_slots
 from repro_torch.models.layers import (apply_rope, causal_mask, normal,
                                        rmsnorm, rope_freqs)
 
@@ -43,7 +48,20 @@ def init_mla(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
+def _split_softmax(logits, mesh, weigh):
+    """The softmax over every data rank's keys of ``logits`` (this rank's
+    keys, masked), applied by ``weigh(w)`` (a weighted sum over the keys'
+    dim, which must keep the (b, h, q) dims in order at 0, 2, 1): each
+    rank's exp-weights from the global max, their sums merged by psum."""
+    mx = mesh.pmax(logits.amax(-1, keepdim=True).contiguous(), "data")
+    w = torch.exp(logits - mx)
+    den = mesh.psum(w.sum(-1).contiguous(), "data")          # (b, h, q)
+    num = mesh.psum(weigh(w).contiguous(), "data")           # (b, q, h, ·)
+    return num / den.transpose(1, 2)[..., None]
+
+
+def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None,
+                  seq_split=False):
     """Returns (out, cache); cache = dict(ckv=(B,Smax,kv_lora),
     kr=(B,Smax,rope_hd)), written in place at ``cache_pos``.
 
@@ -53,25 +71,34 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
     b, s, _ = x.shape
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     h = p.wuk.shape[1] // dn
-    cq = rmsnorm(x @ p.wdq, p.q_gamma, cfg.norm_eps)
+    cq = SH.tp_enter(rmsnorm(x @ p.wdq, p.q_gamma, cfg.norm_eps))
     q = (cq @ p.wuq).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    ckv = rmsnorm(x @ p.wdkv, p.kv_gamma, cfg.norm_eps)
-    kr = (x @ p.wkr).reshape(b, s, 1, dr)
+    ckv = SH.tp_enter(rmsnorm(x @ p.wdkv, p.kv_gamma, cfg.norm_eps))
+    kr = SH.tp_enter((x @ p.wkr).reshape(b, s, 1, dr))
     cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     kr = apply_rope(kr, cos, sin)
+    key_lo, mesh = 0, SH.current_mesh() if seq_split else None
+    merge = seq_split and mesh.extent("data") > 1
     if cache is not None:
-        q_offset, rows, cols = cache_slots(cache_pos, b, s,
-                                           cache["ckv"].shape[1], x.device)
-        cache["ckv"][rows, cols] = ckv.to(cache["ckv"].dtype)
-        cache["kr"][rows, cols] = kr[:, :, 0].to(cache["kr"].dtype)
+        if seq_split:
+            q_offset, cols, src, key_lo = split_slots(
+                cache_pos, s, cache["ckv"].shape[1], mesh)
+            rows = slice(None)
+        else:
+            q_offset, rows, cols = cache_slots(cache_pos, b, s,
+                                               cache["ckv"].shape[1],
+                                               x.device)
+            src = slice(None)
+        cache["ckv"][rows, cols] = ckv[:, src].to(cache["ckv"].dtype)
+        cache["kr"][rows, cols] = kr[:, src, 0].to(cache["kr"].dtype)
         ckv_all, kr_all = cache["ckv"], cache["kr"][:, :, None]
     else:
         q_offset = 0
         ckv_all, kr_all = ckv, kr
     kv_len = ckv_all.shape[1]
-    mask = causal_mask(s, kv_len, q_offset, x.device)
+    mask = causal_mask(s, kv_len, q_offset - key_lo, x.device)
     mask = mask.reshape((-1, 1) + mask.shape[-2:])          # (B|1,1,Sq,kv)
     scale = 1.0 / math.sqrt(dn + dr)
     if s == 1 and cache is not None:
@@ -82,8 +109,12 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
                   + torch.einsum("bqhd,bkod->bhqk", q_rope, kr_all)
                   ).float() * scale
         logits = logits.masked_fill(~mask, -1e30)
-        w = torch.softmax(logits, -1).to(ckv_all.dtype)
-        ctx = torch.einsum("bhqk,bkl->bqhl", w, ckv_all)       # (b,1,h,lora)
+        if merge:
+            ctx = _split_softmax(logits, mesh, lambda w: torch.einsum(
+                "bhqk,bkl->bqhl", w.to(ckv_all.dtype), ckv_all))
+        else:
+            w = torch.softmax(logits, -1).to(ckv_all.dtype)
+            ctx = torch.einsum("bhqk,bkl->bqhl", w, ckv_all)   # (b,1,h,lora)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, wuv).reshape(b, s, h * dv)
         return SH.tp_psum(out @ p.wo), cache
     k_nope = (ckv_all @ p.wuk).reshape(b, kv_len, h, dn)
@@ -92,6 +123,10 @@ def mla_attention(p, x, cfg, positions, cache=None, cache_pos=None):
               + torch.einsum("bqhd,bkod->bhqk", q_rope, kr_all)
               ).float() * scale
     logits = logits.masked_fill(~mask, -1e30)
-    w = torch.softmax(logits, -1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, h * dv)
+    if merge:
+        out = _split_softmax(logits, mesh, lambda w: torch.einsum(
+            "bhqk,bkhd->bqhd", w.to(v.dtype), v)).reshape(b, s, h * dv)
+    else:
+        w = torch.softmax(logits, -1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, h * dv)
     return SH.tp_psum(out @ p.wo), cache

@@ -10,7 +10,11 @@ the same tokens.
 
 ``moe_ffn_a2a`` is the expert-parallel form over the ``model`` axis of
 the current mesh (`models/shardings.py`): each rank holds its block of
-experts, and tokens travel to them and back by two all-to-alls.
+experts, and tokens travel to them and back by two all-to-alls.  Every
+collective has its backward (`core.mesh`): the input enters the split
+region through `shardings.tp_enter`, and so does the router, which each
+rank applies to its own tokens or for its own experts; the all-to-alls
+are their own transpose; the gathers are read replicated.
 
 Expert placement partitions the expert co-activation graph with the
 port's own kaffpa (node+edge balanced, on the card unless
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.mesh import exchange, gather_from, reduce_from
 from repro_torch.models import shardings as SH
 from repro_torch.models.layers import ParamTree, normal, swiglu, whole
 
@@ -146,23 +151,22 @@ def _combine(xt, out, keep, slot, rows, pt, pg) -> torch.Tensor:
 
 def _global_rows(x: torch.Tensor, mesh) -> tuple:
     """(the global batch, this rank's block index): ``x``'s rows gathered
-    over the data axes of ``mesh``, in row order.  The rank's own block
-    is ``x`` itself, so that only it stays on the autograd graph: a
-    token's output depends on the other rows only through the capacity
-    drops, which have no gradient."""
+    over the data axes of ``mesh``, in row order.  The backward keeps the
+    rank's own rows (`core.mesh.gather_from`): a token's output depends
+    on the other rows only through the capacity drops, which have no
+    gradient."""
     i, n = SH.block_index(SH._fs_entry(mesh.axis_names), mesh) \
         if mesh is not None else (0, 1)
     if n == 1:
         return x, 0
-    xg = x.detach()
     for a in reversed(SH.fsdp_axes(mesh.axis_names)):
         if mesh.extent(a) > 1:
-            xg = mesh.all_gather(xg, a, dim=0)
-    b = x.shape[0]
-    return torch.cat([xg[:i * b], x, xg[(i + 1) * b:]]), i
+            x = gather_from(mesh, x, a, 0)
+    return x, i
 
 
-def moe_ffn(p, x: torch.Tensor, cfg, per_row: bool = False) -> torch.Tensor:
+def moe_ffn(p, x: torch.Tensor, cfg, per_row: bool = False,
+            whole_batch: bool = False) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d).
 
     The B·S tokens dispatch as one group, as in the reference, unless
@@ -177,17 +181,21 @@ def moe_ffn(p, x: torch.Tensor, cfg, per_row: bool = False) -> torch.Tensor:
     batch, so the rows are gathered over the data axes (`_global_rows`)
     and the rank keeps its own rows of the result; the rank runs its own
     experts' buffers only, and their contributions, with the shared
-    expert's partial product, are summed over ``model``."""
+    expert's partial product, are summed over ``model``.  With
+    ``whole_batch`` (context parallelism: every data rank holds the
+    global batch) nothing is gathered."""
     b, s, d = x.shape
     e = cfg.n_experts
     e_loc = p.w_gate.shape[0]
     mesh = SH.current_mesh()
     lo = mesh.axis_index("model") * e_loc if e_loc < e else 0
-    xg, i = (x, 0) if per_row else _global_rows(x, mesh)
+    x = SH.tp_enter(x)
+    xg, i = (x, 0) if per_row or whole_batch else _global_rows(x, mesh)
     g, t = (b, s) if per_row else (1, xg.shape[0] * s)
     xt = xg.reshape(g, t, d)
     cap = capacity(t, cfg)
-    keep, slot, rows, pt, pg, buf = _route(p.router, xt, cfg, cap)
+    keep, slot, rows, pt, pg, buf = _route(SH.tp_enter(p.router), xt, cfg,
+                                           cap)
     expert_in = buf.reshape(g, e, cap, d)[:, lo:lo + e_loc].transpose(0, 1) \
         .reshape(e_loc, g * cap, d)
     out = _experts(p, expert_in).reshape(e_loc, g, cap, d).transpose(0, 1)
@@ -200,8 +208,8 @@ def moe_ffn(p, x: torch.Tensor, cfg, per_row: bool = False) -> torch.Tensor:
     return SH.tp_psum(y)
 
 
-def moe_ffn_a2a(p, x: torch.Tensor, cfg, per_row: bool = False
-                ) -> torch.Tensor:
+def moe_ffn_a2a(p, x: torch.Tensor, cfg, per_row: bool = False,
+                whole_batch: bool = False) -> torch.Tensor:
     """Expert-parallel MoE over the current mesh's ``model`` axis (the
     reference's ``shard_map`` body, per rank).  ``x`` holds the rank's
     rows of the batch (B/D, S, d), whole over the sequence; rank j of the
@@ -215,29 +223,34 @@ def moe_ffn_a2a(p, x: torch.Tensor, cfg, per_row: bool = False
     over the M sources' buffers, sends the outputs back, combines, and
     all-gathers the sequence over ``model`` for the next layer.
     Otherwise — no mesh, M = 1, S not a multiple of M (every decode
-    step), or ``per_row`` — it is `moe_ffn`, which alone reports to the
+    step), ``per_row``, or a ``whole_batch`` that the data axes do not
+    divide (context parallelism, where the reference's batch does not
+    split over them either) — it is `moe_ffn`, which alone reports to the
     gate tap, as in the reference."""
     mesh = SH.current_mesh()
     m = SH.model_extent(mesh)
-    if m == 1 or x.shape[1] % m or per_row:
-        return moe_ffn(p, x, cfg, per_row)
+    if (m == 1 or x.shape[1] % m or per_row
+            or (whole_batch and SH.data_extent(mesh) > 1)):
+        return moe_ffn(p, x, cfg, per_row, whole_batch)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     e_loc, sl = e // m, s // m
     j = mesh.axis_index("model")
+    x = SH.tp_enter(x)
     xs = x[:, j * sl:(j + 1) * sl].reshape(1, b * sl, d)
     # per-(source shard → expert) capacity
     cap = max(8, int(math.ceil(b * sl * k * cfg.capacity_factor / e)))
-    keep, slot, rows, pt, pg, buf = _route(p.router, xs, cfg, cap, tap=False)
+    keep, slot, rows, pt, pg, buf = _route(SH.tp_enter(p.router), xs, cfg,
+                                           cap, tap=False)
     # exchange: rank i receives every source's block i
-    recv = mesh.all_to_all(buf.reshape(m, e_loc * cap, d), "model")
+    recv = exchange(mesh, buf.reshape(m, e_loc * cap, d), "model")
     expert_in = recv.reshape(m, e_loc, cap, d).transpose(0, 1) \
         .reshape(e_loc, m * cap, d)
     back = _experts(p, expert_in).reshape(e_loc, m, cap, d) \
         .transpose(0, 1).reshape(m, e_loc * cap, d)
-    ret = mesh.all_to_all(back, "model")
+    ret = exchange(mesh, back, "model")
     y = _combine(xs, ret.reshape(1, e * cap, d), keep, slot, rows, pt, pg)
-    y = mesh.all_gather(y.reshape(b, sl, d), "model", dim=1)
+    y = gather_from(mesh, y.reshape(b, sl, d), "model", 1)
     if cfg.n_shared_experts:
         y = y + SH.tp_psum(swiglu(x, p.ws_gate, p.ws_up, p.ws_down))
     return y
@@ -306,8 +319,8 @@ def _placed_block(w: torch.Tensor, perm: np.ndarray, mesh) -> torch.Tensor:
     want = np.asarray(perm)[j * e_loc:(j + 1) * e_loc]
     out = torch.empty_like(w)
     for src in range(mesh.extent("model")):
-        buf = w.clone() if src == j else torch.zeros_like(w)
-        mesh.psum(buf, "model")
+        buf = reduce_from(mesh, w.clone() if src == j
+                          else torch.zeros_like(w), "model")
         mine = np.flatnonzero(want // e_loc == src)
         if len(mine):
             out[torch.as_tensor(mine, device=w.device)] = buf[

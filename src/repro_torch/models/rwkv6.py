@@ -25,7 +25,11 @@ ln_gamma; rows of wo), runs the WKV on them, norms over all of d with
 mix holds column blocks of wr and wk and a row block of wv, sums the
 value product over ``model`` and gathers the receptance.  Both mixes
 read the whole (replicated) normed input, so ``prev``/``prev_cm`` stay
-whole and only ``wkv`` is per head.
+whole and only ``wkv`` is per head.  Each mixed input of a split product
+enters through `shardings.tp_enter`, and so does the decay's LoRA
+activation before ``w2``: the ``mu_*``, ``w1`` and the input get their
+whole gradients on every rank; the gathered receptance is read
+replicated.
 """
 from __future__ import annotations
 
@@ -138,14 +142,14 @@ def rwkv6_time_mix(p, x, cfg, state=None):
     dx = xs - x
 
     def mix(mu):
-        return x + dx * mu
+        return SH.tp_enter(x + dx * mu)
 
     r = mix(p.mu_r) @ p.wr
     k = mix(p.mu_k) @ p.wk
     v = mix(p.mu_v) @ p.wv
     g = F.silu(mix(p.mu_g) @ p.wg)
-    logw = -torch.exp(p.w0 + (torch.tanh(mix(p.mu_w) @ p.w1).float()
-                              @ p.w2.float()))       # (B, L, d), negative
+    lora = SH.tp_enter(torch.tanh((x + dx * p.mu_w) @ p.w1).float())
+    logw = -torch.exp(p.w0 + lora @ p.w2.float())    # (B, L, d), negative
     d = r.shape[-1]                                  # the rank's channels
     logw = logw.clamp(LOGW_MIN, -1e-4)
     if state is None:
@@ -172,8 +176,8 @@ def rwkv6_channel_mix(p, x, state=None):
     without a state."""
     xs = _shifted(x, state, "rwkv6_channel_mix")
     dx = xs - x
-    r = SH.tp_gather(torch.sigmoid((x + dx * p.mu_r) @ p.wr), -1)
-    hid = torch.square(torch.relu((x + dx * p.mu_k) @ p.wk))
+    r = SH.tp_gather(torch.sigmoid(SH.tp_enter(x + dx * p.mu_r) @ p.wr), -1)
+    hid = torch.square(torch.relu(SH.tp_enter(x + dx * p.mu_k) @ p.wk))
     return r * SH.tp_psum(hid @ p.wv), \
         (None if state is None else x[:, 0].float())
 

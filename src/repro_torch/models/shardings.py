@@ -15,15 +15,34 @@ stacked layer axis of the reference's leaves left out, since the port
 keeps one module per layer.
 
 The reference hands those specs to GSPMD.  Here the layout is explicit:
-each rank holds its own block of every leaf the spec shards over
-``model`` (`local_block`, `tp_block`) and runs the per-rank body, as
-``shard_map`` does, with the collectives of `core.mesh.Mesh` (counted in
-``obs.metrics``).  Only the ``model`` axis is materialised: the
-``data``/``pod`` entries of the parameter specs stay replicated (the same
-numbers, more memory; ZeRO-3 is left for later), and the batch is split
-over every data axis by the caller.  Under this layout there is nothing
-left for ``with_sharding_constraint`` to do: the ``constrain_*``
-functions check the rank of the local tensor and return it.
+each rank holds its own block of every leaf (`rank_block`) and runs the
+per-rank body, as ``shard_map`` does, with the collectives of
+`core.mesh` (counted in ``obs.metrics``), each with the backward that
+its transpose under ``shard_map`` gives it:
+
+* ``model`` (`tp_block`): the rank's heads, hidden units, experts and
+  vocab rows; row-parallel partial products are summed (`tp_psum`), and
+  every replicated tensor that enters a split region goes through
+  `tp_enter`, whose backward sums the ranks' parts of its gradient.
+* the data axes (FSDP, ZeRO-3): within its ``model`` block the rank
+  holds the block along the dim that the spec gives the data axes
+  (`fsdp_dim`: d_model's side of every projection, the embedding's d),
+  whenever their extent is above 1.  Parameters, gradients and the
+  optimizer's moments are thus 1/(D·M) of each such leaf per rank;
+  leaves whose spec has no data entry (norm gains, ``pos_embed``,
+  rwkv6's ``mu_*``/``w0``/``w2``/``u``, MLA's gammas) stay whole.  A
+  block's function gathers its shards (`gathered`, `fsdp_gather`) and
+  the backward reduce-scatters their gradients, summed over the data
+  ranks, into the shards.
+* the batch: split over every data axis by the caller where they divide
+  it; else (a batch of 1) every data rank holds the whole batch and the
+  attention caches' sequence is split over ``data`` (`SeqSplitCaches`:
+  context parallelism, the reference's long-context decode), each rank
+  scoring its own positions and the softmax merged over ``data``.
+
+Under this layout there is nothing left for ``with_sharding_constraint``
+to do: the ``constrain_*`` functions check the rank of the local tensor
+and return it.
 
 Where ``n_kv_heads`` is not a multiple of the ``model`` extent, the
 reference's `cache_specs` shards head_dim (``hd_fallback``), which an
@@ -37,7 +56,7 @@ because a spec's contiguous block of a fused or per-channel leaf is not
 what the rank's heads read (GSPMD reshards such a leaf where it is used;
 an explicit layout must hold the right columns from the start):
 
-* Mamba2 (`_mamba_block`): ``in_proj`` is ``[z | x | B | C | dt]`` along
+* Mamba2 (`_mamba_segments`): ``in_proj`` is ``[z | x | B | C | dt]`` along
   its columns.  The rank holds its slice of ``z``, of ``x`` and of
   ``dt`` (its heads) and *all* of ``B`` and ``C``, which every head
   reads; ``conv_w``/``conv_b`` likewise hold the rank's ``x`` channels
@@ -62,7 +81,7 @@ an explicit layout must hold the right columns from the start):
 What the port runs reads one description: `tp_block` keeps the
 ``model`` entries of `leaf_spec` (the spec `param_specs` gives each
 leaf), with the exceptions above written in `kv_heads_local`,
-`_mamba_block` and `_SPLIT_DIM`; `models/transformer.init_caches` sizes
+`_mamba_segments` and `_SPLIT_DIM`; `models/transformer.init_caches` sizes
 the caches by the same rules.  `param_specs`, `cache_specs`,
 `batch_spec` and `constrain_moe_buffers` (and
 `launch.mesh.make_production_mesh`) are there for parity with the
@@ -80,7 +99,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.mesh import check_mesh
+from repro_torch.core.mesh import (_gather, check_mesh, copy_to,
+                                   gather_from, gather_shards, reduce_both,
+                                   reduce_from)
 from repro_torch.models.layers import rmsnorm
 
 _CURRENT_MESH = None
@@ -102,6 +123,14 @@ def use_mesh(mesh):
 
 def current_mesh():
     return _CURRENT_MESH
+
+
+class SeqSplitCaches(dict):
+    """The caches of ``transformer.init_caches`` for a batch that the data
+    axes do not divide: every data rank holds the whole batch, and the
+    sequence of ``k``/``v``/``xk``/``xv``/``ckv``/``kr`` is split over
+    ``data`` (rank i holds positions i·S/D … (i+1)·S/D − 1), as
+    `cache_specs` places them; the O(1) states are whole."""
 
 
 def _sizes(mesh) -> dict:
@@ -381,34 +410,90 @@ _SPLIT_DIM = {("tmix", "w0"): 0, ("tmix", "w2"): 1, ("tmix", "u"): 0,
               ("tmix", "ln_gamma"): 0, ("cmix", "wv"): 0}
 
 
-def _segments(t: torch.Tensor, sizes, split, m: int, j: int) -> torch.Tensor:
-    """The columns of ``t``'s last dim that rank ``j`` of ``m`` holds:
-    ``t`` is cut into segments of ``sizes``; of each segment whose
-    ``split`` is true the rank keeps its block, of the others all."""
-    parts = []
-    for seg, cut in zip(t.split(list(sizes), -1), split):
-        if cut:
-            if seg.shape[-1] % m:
-                raise ValueError(f"a segment of {seg.shape[-1]} columns "
-                                 f"does not split into {m} blocks")
-            w = seg.shape[-1] // m
-            seg = seg[..., j * w:(j + 1) * w]
-        parts.append(seg)
-    return torch.cat(parts, -1)
+def _names(path: str) -> tuple:
+    keys = path.split(".")
+    return (keys[-2] if len(keys) > 1 else ""), keys[-1]
 
 
-def _mamba_block(name: str, t: torch.Tensor, cfg, m: int, j: int):
-    """Rank ``j`` of ``m``'s block of the Mamba2 leaf ``name`` where it is
+def _mamba_segments(name: str, cfg):
+    """(sizes, split) of the Mamba2 leaf ``name``'s last dim where it is
     not one contiguous block (module docstring), else None: ``in_proj``'s
-    columns [z, x, B, C, dt] as (its z, its x, all B and C, its dt);
-    ``conv_w``/``conv_b``'s channels [x, B, C] as (its x, all B and C)."""
+    columns [z, x, B, C, dt], ``conv_w``/``conv_b``'s channels [x, B,
+    C]; ``split`` marks the segments cut by head."""
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
     if name == "in_proj":
-        return _segments(t, (di, di, 2 * n, nh), (True, True, False, True),
-                         m, j)
+        return (di, di, 2 * n, nh), (True, True, False, True)
     if name in ("conv_w", "conv_b"):
-        return _segments(t, (di, 2 * n), (True, False), m, j)
+        return (di, 2 * n), (True, False)
     return None
+
+
+def _kv_fallback(parent: str, name: str, cfg, m: int) -> bool:
+    return (name in ("wk", "wv") and parent in ("attn", "xattn")
+            and cfg.n_kv_heads % m != 0)
+
+
+def _kv_head(cfg, m: int, j: int) -> int:
+    """The KV head that rank ``j`` of ``m``'s query heads read, where
+    ``model`` does not divide the KV heads (`kv_heads_local`)."""
+    kv_heads_local(cfg, m)
+    return j * (cfg.n_heads // m) // (cfg.n_heads // cfg.n_kv_heads)
+
+
+def _model_dims(path: str, ndim: int) -> list:
+    """The dims of leaf ``path`` that ``model`` splits in one block each."""
+    parent, name = _names(path)
+    if (parent, name) in _SPLIT_DIM:
+        return [_SPLIT_DIM[parent, name]]
+    return [i for i, e in enumerate(leaf_spec(path, ndim, ("model",)))
+            if e == "model"]
+
+
+def _model_index(path: str, shape, cfg, m: int, j: int) -> tuple:
+    """The index into the whole leaf ``path`` (of ``shape``) of rank ``j``
+    of ``m``'s tensor-parallel block: a slice per dim, or the column ids
+    of a Mamba2 leaf's segments."""
+    parent, name = _names(path)
+    index = [slice(None)] * len(shape)
+    seg = _mamba_segments(name, cfg) if parent == "mamba" else None
+    if seg is not None:
+        cols, lo = [], 0
+        for size, cut in zip(*seg):
+            if cut and size % m:
+                raise ValueError(f"a segment of {size} columns does not "
+                                 f"split into {m} blocks")
+            w = size // m if cut else size
+            first = lo + j * w if cut else lo
+            cols.append(torch.arange(first, first + w))
+            lo += size
+        index[-1] = torch.cat(cols)
+        return tuple(index)
+    if _kv_fallback(parent, name, cfg, m):
+        k = _kv_head(cfg, m, j)
+        index[-1] = slice(k * cfg.hd, (k + 1) * cfg.hd)
+        return tuple(index)
+    for d in _model_dims(path, len(shape)):
+        if shape[d] % m:
+            raise ValueError(f"dim {shape[d]} of {tuple(shape)} does not "
+                             f"split into {m} blocks over model")
+        w = shape[d] // m
+        index[d] = slice(j * w, (j + 1) * w)
+    return tuple(index)
+
+
+def _whole_shape(path: str, shape, cfg, m: int) -> tuple:
+    """The whole leaf's shape of a tensor-parallel block of ``shape``."""
+    parent, name = _names(path)
+    shape = list(shape)
+    seg = _mamba_segments(name, cfg) if parent == "mamba" else None
+    if seg is not None:
+        shape[-1] = sum(seg[0])
+    elif _kv_fallback(parent, name, cfg, m):
+        shape[-1] = cfg.n_kv_heads * cfg.hd
+    else:
+        for d in _model_dims(path, len(shape)):
+            shape[d] *= m
+    return tuple(shape)
 
 
 def tp_block(path: str, t: torch.Tensor, cfg, mesh) -> torch.Tensor:
@@ -421,47 +506,206 @@ def tp_block(path: str, t: torch.Tensor, cfg, mesh) -> torch.Tensor:
     channels; the rank's vocab rows of embed and columns of lm_head); for
     wk/wv whose heads ``model`` does not divide, the KV head of the
     rank's query heads; and the departures of the module docstring
-    (`_mamba_block`, `_SPLIT_DIM`)."""
+    (Mamba2's segments, `_SPLIT_DIM`).  ``t`` itself where ``model``
+    splits nothing of it, else a copy."""
     m = model_extent(mesh)
     if m == 1:
         return t
-    keys = path.split(".")
-    name = keys[-1]
-    parent = keys[-2] if len(keys) > 1 else ""
-    j = mesh.axis_index("model")
-    if parent == "mamba":
-        blk = _mamba_block(name, t, cfg, m, j)
-        if blk is not None:
-            return blk
-    if (name in ("wk", "wv") and parent in ("attn", "xattn")
-            and cfg.n_kv_heads % m):
-        kv_heads_local(cfg, m)
-        k = j * (cfg.n_heads // m) // (cfg.n_heads // cfg.n_kv_heads)
-        return t[:, k * cfg.hd:(k + 1) * cfg.hd].clone()
-    if (parent, name) in _SPLIT_DIM:
-        spec = [None] * t.dim()
-        spec[_SPLIT_DIM[parent, name]] = "model"
-    else:
-        spec = ["model" if e == "model" else None
-                for e in leaf_spec(path, t.dim(), mesh.axis_names)]
+    index = _model_index(path, t.shape, cfg, m, mesh.axis_index("model"))
+    if all(isinstance(i, slice) and i == slice(None) for i in index):
+        return t
+    blk = t[index]
+    # basic slicing gives a view: copy it, so the whole can be freed
+    return blk if any(torch.is_tensor(i) for i in index) else blk.clone()
+
+
+def fsdp_dim(path: str, ndim: int, mesh) -> Optional[int]:
+    """The dim of leaf ``path`` that the data axes split (FSDP, ZeRO-3):
+    the dim whose spec entry is the data axes, always d_model's side of
+    a projection; None where the spec has no data entry or the data
+    extent is 1."""
+    if data_extent(mesh) == 1:
+        return None
+    fs = _fs_entry(mesh.axis_names)
+    spec = leaf_spec(path, ndim, mesh.axis_names)
+    return spec.index(fs) if fs in spec else None
+
+
+def _data_axes(mesh) -> tuple:
+    """The data axes of ``mesh`` whose extent is above 1, slowest first."""
+    return tuple(a for a in fsdp_axes(mesh.axis_names)
+                 if mesh.extent(a) > 1)
+
+
+def rank_block(path: str, t: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """What the rank holds of the whole parameter ``t``: its `tp_block`
+    and, within that, its block along `fsdp_dim` over the data axes (a
+    dim they do not divide raises)."""
+    t = tp_block(path, t, cfg, mesh)
+    d = fsdp_dim(path, t.dim(), mesh)
+    if d is None:
+        return t
+    spec = [None] * t.dim()
+    spec[d] = _fs_entry(mesh.axis_names)
     return local_block(t, tuple(spec), mesh)
+
+
+def mark_layout(model, mesh) -> None:
+    """Record on each parameter of ``model`` (held as `rank_block`s of
+    ``mesh``) its ``fsdp_dim``, which `gathered` reads."""
+    for name, p in model.named_parameters():
+        p.fsdp_dim = None if mesh is None else fsdp_dim(name, p.dim(), mesh)
+
+
+def fsdp_gather(t: torch.Tensor) -> torch.Tensor:
+    """The rank's parameter shard ``t`` gathered over the current mesh's
+    data axes along its ``fsdp_dim`` (its `tp_block`); the backward
+    reduce-scatters (sums) each rank's gradient of the gathered tensor
+    into the shards.  ``t`` itself where it is not sharded."""
+    d = getattr(t, "fsdp_dim", None)
+    if d is None:
+        return t
+    mesh = _CURRENT_MESH
+    return gather_shards(mesh, t, _data_axes(mesh), d)
+
+
+class _Gathered:
+    """A module's parameters, each through `fsdp_gather`, under the
+    module's own attribute names; child modules likewise."""
+
+    def __init__(self, module):
+        for name, p in module.named_parameters(recurse=False):
+            setattr(self, name, fsdp_gather(p))
+        for name, child in module.named_children():
+            setattr(self, name, _Gathered(child))
+
+
+def gathered(module):
+    """``module`` with its FSDP shards gathered (`fsdp_gather`), for the
+    body of one block: called inside the function that remat
+    checkpoints, the gathered weights are freed after the block and
+    gathered again in the recomputation.  ``module`` itself when the
+    current mesh's data extent is 1."""
+    if data_extent(_CURRENT_MESH) == 1:
+        return module
+    return _Gathered(module)
+
+
+def whole_leaf(path: str, t: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The inverse of `rank_block`: the whole parameter from every rank's
+    block ``t`` (a collective over ``mesh``: every rank calls it, in the
+    same order)."""
+    d = fsdp_dim(path, t.dim(), mesh)
+    if d is not None:
+        t = _gather(mesh, t.contiguous(), _data_axes(mesh), d)
+    m = model_extent(mesh)
+    if m == 1:
+        return t
+    shape = _whole_shape(path, t.shape, cfg, m)
+    parts = mesh.all_gather(t.contiguous()[None], "model", dim=0)
+    out = t.new_empty(shape)
+    for j in range(m):
+        out[_model_index(path, shape, cfg, m, j)] = parts[j]
+    return out
+
+
+def whole_shape(path: str, shape, cfg, mesh) -> tuple:
+    """The whole parameter's shape of a `rank_block` of ``shape``."""
+    shape = list(shape)
+    d = fsdp_dim(path, len(shape), mesh)
+    if d is not None:
+        shape[d] *= data_extent(mesh)
+    m = model_extent(mesh)
+    return _whole_shape(path, shape, cfg, m) if m > 1 else tuple(shape)
+
+
+def counted_once(path: str, t: torch.Tensor, cfg, mesh):
+    """What of the rank's block ``t`` of ``path`` this rank counts in a
+    sum over the whole mesh that counts each element of the leaf once:
+    True (all of it), False (none: another rank holds the same numbers)
+    or a bool mask over the last dim (Mamba2's B/C columns, counted on
+    model rank 0)."""
+    if mesh is None:
+        return True
+    if fsdp_dim(path, t.dim(), mesh) is None and any(
+            mesh.axis_index(a) for a in fsdp_axes(mesh.axis_names)):
+        return False
+    m = model_extent(mesh)
+    if m == 1:
+        return True
+    j = mesh.axis_index("model")
+    parent, name = _names(path)
+    seg = _mamba_segments(name, cfg) if parent == "mamba" else None
+    if seg is not None:
+        mask = torch.cat([torch.full((size // m if cut else size,),
+                                     cut or j == 0, dtype=torch.bool)
+                          for size, cut in zip(*seg)])
+        return mask.to(t.device)
+    if _kv_fallback(parent, name, cfg, m):
+        return j % (m // cfg.n_kv_heads) == 0
+    return bool(_model_dims(path, t.dim())) or j == 0
 
 
 def tp_psum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the current mesh's ``model`` ranks of a row-parallel
-    partial product (the identity at a ``model`` extent of 1)."""
+    partial product (the identity at a ``model`` extent of 1); its
+    output is read alike on every rank, so the backward is the
+    identity (`core.mesh.reduce_from`)."""
     mesh = _CURRENT_MESH
     if model_extent(mesh) == 1:
         return x
-    return mesh.psum(x.contiguous(), "model")
+    return reduce_from(mesh, x, "model")
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor entering a split region (Megatron's "f"): the
+    identity, whose backward sums the ranks' parts of the gradient over
+    ``model`` (`core.mesh.copy_to`).  Each column-parallel product's
+    input goes through it, so every replicated activation and leaf
+    upstream of it gets its whole gradient on every rank."""
+    mesh = _CURRENT_MESH
+    if model_extent(mesh) == 1:
+        return x
+    return copy_to(mesh, x, "model")
+
+
+def tp_enter_cols(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """`tp_enter` of the columns ``lo:hi`` of a leaf the rank holds in
+    part: Mamba2's B/C columns of ``in_proj`` and channels of
+    ``conv_w``/``conv_b``, held whole on every rank beside the rank's
+    split columns."""
+    if model_extent(_CURRENT_MESH) == 1 or not (
+            torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return torch.cat([t[..., :lo], tp_enter(t[..., lo:hi]), t[..., hi:]],
+                     -1)
+
+
+def tp_enter_kv(w: torch.Tensor, cfg) -> torch.Tensor:
+    """``wk``/``wv`` of the KV head that the rank's query heads read,
+    where ``model`` does not divide the KV heads: the ranks of one GQA
+    group hold the same columns, and the backward sums its gradient over
+    them (the rank's columns placed among all KV heads' and summed over
+    ``model``)."""
+    mesh = _CURRENT_MESH
+    m = model_extent(mesh)
+    if m == 1 or cfg.n_kv_heads % m == 0 or not (
+            torch.is_grad_enabled() and w.requires_grad):
+        return w
+    k = _kv_head(cfg, m, mesh.axis_index("model"))
+    full = torch.nn.functional.pad(
+        w, (k * cfg.hd, (cfg.n_kv_heads - k - 1) * cfg.hd))
+    return tp_enter(full)[..., k * cfg.hd:(k + 1) * cfg.hd]
 
 
 def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The ``model`` ranks' slices of ``x`` concatenated along ``dim``."""
+    """The ``model`` ranks' slices of ``x`` concatenated along ``dim``,
+    read replicated: the backward keeps the rank's slice
+    (`core.mesh.gather_from`)."""
     mesh = _CURRENT_MESH
     if model_extent(mesh) == 1:
         return x
-    return mesh.all_gather(x, "model", dim=dim)
+    return gather_from(mesh, x, "model", dim)
 
 
 def tp_rmsnorm(x: torch.Tensor, gamma_local: torch.Tensor,
@@ -477,6 +721,7 @@ def tp_rmsnorm(x: torch.Tensor, gamma_local: torch.Tensor,
         return rmsnorm(x, gamma_local, eps)
     dt = x.dtype
     xf = x.float()
-    ss = mesh.psum((xf * xf).sum(-1, keepdim=True).contiguous(), "model")
+    # the sum feeds split channels: psum both ways
+    ss = reduce_both(mesh, (xf * xf).sum(-1, keepdim=True), "model")
     xf = xf * torch.rsqrt(ss / (xf.shape[-1] * m) + eps)
     return (xf * (1.0 + gamma_local.float())).to(dt)

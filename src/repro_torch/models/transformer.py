@@ -26,9 +26,19 @@ and rwkv6 heads, its vocab rows), sums each row-parallel product over
 looks up only its vocab rows of the embedding, and gathers the logits'
 vocab slices; the residual stream, and whisper's encoder output, are
 whole on every rank, and the caller passes the rank's rows of the batch.
-With no mesh or M = 1 nothing changes.  ``remat`` recomputes
+Every replicated tensor entering a split region passes `shardings.
+tp_enter`, so the backward gives every leaf its whole gradient: training
+runs at any M that `shardings.check_tp` admits.  Over the data axes
+(extent D > 1) each rank holds its FSDP shard of every leaf the spec
+shards there (`shardings.rank_block`), and each block gathers its
+weights at its start (`shardings.gathered`) inside the function that
+``remat`` checkpoints; a batch that the data axes do not divide is whole
+on every data rank, with the attention caches' sequence split over
+``data`` (`init_caches`, `shardings.SeqSplitCaches`).  With no mesh, or
+M = D = 1, nothing changes.  ``remat`` recomputes
 each decoder block, Mamba layer and encoder block in the backward pass
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does,
+the FSDP gathers included.
 
 ``forward`` runs with caches updated in place (the reference returns new
 caches; here the returned dict is the one passed in).  Its grad mode
@@ -112,6 +122,7 @@ def _init_mlp(gen: torch.Generator, cfg, dtype, keep=whole) -> dict:
 def _mlp(p, x, cfg):
     """The MLP; under a mesh ``p`` holds column blocks of w_gate/w_up and a
     row block of w_down, whose partial product is summed over model."""
+    x = SH.tp_enter(x)
     if cfg.mlp_gelu:
         return SH.tp_psum(gelu_mlp(x, p.w_up, p.w_down))
     return SH.tp_psum(swiglu(x, p.w_gate, p.w_up, p.w_down))
@@ -157,8 +168,11 @@ class LM(nn.Module):
         super().__init__()
         _require_ported(cfg)
         self.cfg = cfg
-        #: the ``model`` extent whose blocks this model holds (1: whole)
+        #: the ``model`` extent whose blocks this model holds (1: whole),
+        #: the data extent whose FSDP shards it holds, and that mesh
         self.tp = 1
+        self.fsdp = 1
+        self.mesh = None
         self.embed = _frozen(tree["embed"])
         self.final_gamma = _frozen(tree["final_gamma"])
         if not cfg.tie_embeddings:
@@ -220,15 +234,27 @@ def model_class(cfg: ArchConfig) -> type:
 
 
 def tp_keeper(cfg: ArchConfig, mesh):
-    """``(keep, M)``: the ``keep`` that holds each drawn leaf's
-    tensor-parallel block on this rank of ``mesh`` (`shardings.tp_block`)
-    and the ``model`` extent M; raises where ``cfg`` has no
-    tensor-parallel form over M > 1."""
+    """The ``keep`` that holds each drawn leaf's block on this rank of
+    ``mesh`` (`shardings.rank_block`: the tensor-parallel block, and
+    within it the FSDP shard over the data axes); raises where ``cfg``
+    has no tensor-parallel form over the ``model`` extent."""
     m = SH.model_extent(mesh)
-    if m == 1:
-        return whole, 1
-    SH.check_tp(cfg, m)
-    return (lambda name, t: SH.tp_block(name, t, cfg, mesh)), m
+    if m > 1:
+        SH.check_tp(cfg, m)
+    if m == 1 and SH.data_extent(mesh) == 1:
+        return whole
+    return lambda name, t: SH.rank_block(name, t, cfg, mesh)
+
+
+def held_on(model: LM, mesh) -> LM:
+    """Record on ``model`` (built from `tp_keeper`'s blocks) the mesh
+    whose blocks it holds: ``tp``, ``fsdp``, ``mesh`` and each
+    parameter's ``fsdp_dim`` (`shardings.mark_layout`)."""
+    model.tp = SH.model_extent(mesh)
+    model.fsdp = SH.data_extent(mesh)
+    model.mesh = mesh
+    SH.mark_layout(model, mesh)
+    return model
 
 
 def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
@@ -236,12 +262,14 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
     """Random weights from ``seed``, drawn on ``device`` (None = CUDA;
     raises without a card unless ``device="cpu"``).  With a ``mesh``
     (on its rank's device) every leaf is still drawn whole, from the same
-    generator in the same order, and the rank keeps its tensor-parallel
-    block at once: a sharded model holds exactly the unsharded model's
-    weights, and the transient memory is one leaf."""
+    generator in the same order, and the rank keeps its block at once
+    (`shardings.rank_block`: its ``model`` block and, where the data
+    extent is above 1, its FSDP shard of it): a sharded model holds
+    exactly the unsharded model's weights, and the transient memory is
+    one leaf."""
     cls = model_class(cfg)
     dev = device_of(mesh, device)
-    keep, m = tp_keeper(cfg, mesh)
+    keep = tp_keeper(cfg, mesh)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
@@ -270,9 +298,7 @@ def init_params(cfg: ArchConfig, seed: int, dtype=torch.float32,
         tree["enc_blocks"] = [_init_block(gen, cfg, dtype, zeros, keep=keep)
                               for _ in range(cfg.enc_layers)]
         tree["enc_final_gamma"] = zeros(d)
-    model = cls(cfg, tree)
-    model.tp = m
-    return model
+    return held_on(cls(cfg, tree), mesh)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -296,23 +322,58 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     `cache_specs` splits head_dim instead), its Mamba2 heads' ``ssm`` and
     its x channels with all B/C channels of ``conv``, its rwkv6 heads'
     ``wkv``; ``prev``/``prev_cm`` and MLA's ``ckv``/``kr`` are whole
-    (`models/shardings.py`).  A batch that the data axes do not divide
-    (the reference's sequence-parallel caches) raises."""
+    (`models/shardings.py`).
+
+    A batch that the data axes do not divide (the reference's
+    ``cache_specs`` rule: a batch of 1 on a data extent D > 1) stays
+    whole on every data rank, and the sequence of ``k``/``v``/``xk``/
+    ``xv``/``ckv``/``kr`` is split over ``data``: max_len / D (and
+    enc_len / D) positions per rank, each dim that D must divide; the
+    O(1) states stay whole.  The caches then come as a
+    `shardings.SeqSplitCaches`, which ``forward`` reads as context
+    parallelism.  A batch that only some of the data axes divide
+    raises."""
     _require_ported(cfg)
     dev = device_of(mesh, device)
-    kv_heads, m = cfg.n_kv_heads, 1
+    kv_heads, m, split = cfg.n_kv_heads, 1, 1
     if mesh is not None:
         m = SH.model_extent(mesh)
         SH.check_tp(cfg, m)
         dsz = SH.data_extent(mesh)
-        if SH.batch_axes_for(mesh, batch) != SH._fs_entry(mesh.axis_names):
+        axes = SH.batch_axes_for(mesh, batch)
+        if axes is None and dsz > 1:
+            split = mesh.extent("data")
+            if dsz != split:
+                raise NotImplementedError(
+                    f"a batch of {batch} on data axes "
+                    f"{SH.fsdp_axes(mesh.axis_names)}: the sequence splits "
+                    f"over 'data' alone, the other axes would replicate it")
+        elif axes != SH._fs_entry(mesh.axis_names):
             raise NotImplementedError(
-                f"a batch of {batch} does not split over the data axes "
-                f"{SH.fsdp_axes(mesh.axis_names)} ({dsz} ranks): the "
-                f"sequence-parallel caches are queued in ROADMAP.md")
-        batch //= dsz
+                f"a batch of {batch} splits over {axes}, not every data "
+                f"axis of {SH.fsdp_axes(mesh.axis_names)}")
+        else:
+            batch //= dsz
         if m > 1 and cfg.family != "ssm":
             kv_heads = SH.kv_heads_local(cfg, m)
+    out = _caches(cfg, batch, max_len, dtype, dev, enc_len, kv_heads, m,
+                  split)
+    return SH.SeqSplitCaches(out) if split > 1 else out
+
+
+def _seq_len(n: int, split: int, what: str) -> int:
+    if n % split:
+        raise ValueError(f"{what} of {n} does not split over data={split}")
+    return n // split
+
+
+def _caches(cfg, batch, max_len, dtype, dev, enc_len, kv_heads, m, split):
+    """`init_caches`' leaves: ``split`` data ranks share each sequence."""
+    if cfg.family == "ssm":
+        return {name: torch.stack([t] * cfg.n_layers) for name, t in
+                R6.init_rwkv6_state(cfg, batch, device=dev,
+                                    model=m).items()}
+    max_len = _seq_len(max_len, split, "max_len")
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -324,19 +385,15 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
         out.update({name: torch.stack([t] * cfg.n_layers) for name, t in
                     M2.init_mamba2_state(cfg, batch, dtype, dev, m).items()})
         return out
-    if cfg.family == "ssm":
-        return {name: torch.stack([t] * cfg.n_layers) for name, t in
-                R6.init_rwkv6_state(cfg, batch, device=dev,
-                                    model=m).items()}
     if cfg.is_mla:
         return {"ckv": zeros(cfg.n_layers, batch, max_len, cfg.kv_lora),
                 "kr": zeros(cfg.n_layers, batch, max_len, cfg.rope_head_dim)}
     kv = (cfg.n_layers, batch, max_len, kv_heads, cfg.hd)
     out = {"k": zeros(*kv), "v": zeros(*kv)}
     if cfg.enc_layers:
-        xkv = (cfg.n_layers, batch,
-               cfg.enc_positions if enc_len is None else enc_len,
-               kv_heads, cfg.hd)
+        xkv = (cfg.n_layers, batch, _seq_len(
+            cfg.enc_positions if enc_len is None else enc_len, split,
+            "enc_len"), kv_heads, cfg.hd)
         out["xk"], out["xv"] = zeros(*xkv), zeros(*xkv)
     return out
 
@@ -344,8 +401,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 def _mamba_layer(blk, x, cfg, state, engine):
     """x + mixer(rmsnorm(x, ln1)); a state (one layer's ``ssm``/``conv``)
     takes one token and is updated in place."""
-    y, new_st = blk.mamba(rmsnorm(x, blk.ln1, cfg.norm_eps), state=state,
-                          engine=engine)
+    blk = SH.gathered(blk)
+    y, new_st = M2.mamba2_mixer(blk.mamba, rmsnorm(x, blk.ln1, cfg.norm_eps),
+                                cfg, state=state, engine=engine)
     if new_st is not None:
         state["ssm"].copy_(new_st["ssm"])
         state["conv"].copy_(new_st["conv"])
@@ -353,12 +411,11 @@ def _mamba_layer(blk, x, cfg, state, engine):
 
 
 def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
-                engine, remat):
+                engine, remat, seq_split=False):
     """Groups of `attn_every` Mamba layers, each followed by the shared
     attention+MLP block; ``remat`` wraps each Mamba layer, as in the
     reference."""
     every = cfg.attn_every
-    sh = model.shared
     for g in range(cfg.n_layers // every):
         for i in range(g * every, (g + 1) * every):
             st = None if caches is None else {"ssm": caches["ssm"][i],
@@ -368,8 +425,10 @@ def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
                 engine=engine), x, remat)
         kv = None if caches is None else {"k": caches["attn"]["k"][g],
                                           "v": caches["attn"]["v"][g]}
+        sh = SH.gathered(model.shared)
         a, _ = A.attention(sh.attn, rmsnorm(x, sh.ln1, cfg.norm_eps), cfg,
-                           positions, cache=kv, cache_pos=cache_pos)
+                           positions, cache=kv, cache_pos=cache_pos,
+                           seq_split=seq_split)
         x = x + a
         x = x + _mlp(sh.mlp, rmsnorm(x, sh.ln2, cfg.norm_eps), cfg)
     return x
@@ -388,6 +447,7 @@ def _rwkv_block(p, x, cfg, cache):
     """x + time mix, then + channel mix, each on its pre-norm; a cache
     (one layer's ``prev``/``wkv``/``prev_cm``) takes one token and is
     updated in place."""
+    p = SH.gathered(p)
     st = None if cache is None else {"prev": cache["prev"],
                                      "wkv": cache["wkv"]}
     t, new_t = R6.rwkv6_time_mix(p.tmix, rmsnorm(x, p.ln1, cfg.norm_eps),
@@ -404,14 +464,16 @@ def _rwkv_block(p, x, cfg, cache):
 
 
 def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
-                 enc_out=None):
+                 enc_out=None, seq_split=False):
+    p = SH.gathered(p)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if cfg.is_mla:
         a, _ = MLA.mla_attention(p.attn, h, cfg, positions, cache=cache,
-                                 cache_pos=cache_pos)
+                                 cache_pos=cache_pos, seq_split=seq_split)
     else:
         a, _ = A.attention(p.attn, h, cfg, positions, window=window,
-                           cache=cache, cache_pos=cache_pos)
+                           cache=cache, cache_pos=cache_pos,
+                           seq_split=seq_split)
     if cfg.local_global_alternate:
         a = rmsnorm(a, p.post1, cfg.norm_eps)
     x = x + a
@@ -421,19 +483,24 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
         if enc_out is not None:
             kv = A.init_cross_kv(p.xattn, enc_out, cfg)
             if cache is not None:
-                cache["xk"].copy_(kv[0])
-                cache["xv"].copy_(kv[1])
+                n = cache["xk"].shape[1]
+                lo = (SH.current_mesh().axis_index("data") * n if seq_split
+                      else 0)
+                cache["xk"].copy_(kv[0][:, lo:lo + n])
+                cache["xv"].copy_(kv[1][:, lo:lo + n])
         else:
             kv = (cache["xk"], cache["xv"])
         cx, _ = A.attention(p.xattn, rmsnorm(x, p.ln_x, cfg.norm_eps), cfg,
-                            positions, kv_override=kv)
+                            positions, kv_override=kv,
+                            seq_split=seq_split and enc_out is None)
         x = x + cx
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
     if cfg.is_moe:
         # per-row cursors: each row dispatches alone, as each slot does in
         # the reference's per-slot decode
         f = MOE.moe_ffn_a2a(p.moe, h2, cfg,
-                            per_row=torch.is_tensor(cache_pos))
+                            per_row=torch.is_tensor(cache_pos),
+                            whole_batch=seq_split)
     else:
         f = _mlp(p.mlp, h2, cfg)
     if cfg.local_global_alternate:
@@ -442,7 +509,7 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
 
 
 def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
-                 enc_out=None, remat: str = "none"):
+                 enc_out=None, remat: str = "none", seq_split=False):
     for i, blk in enumerate(model.blocks):
         cache = (None if caches is None
                  else {name: c[i] for name, c in caches.items()})
@@ -452,12 +519,13 @@ def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
             body = functools.partial(
                 _dense_block, blk, cfg=cfg, positions=positions,
                 window=layer_window(cfg, i), cache=cache,
-                cache_pos=cache_pos, enc_out=enc_out)
+                cache_pos=cache_pos, enc_out=enc_out, seq_split=seq_split)
         x = _remat(body, x, remat)
     return x
 
 
 def _enc_block(p, x, cfg, pos):
+    p = SH.gathered(p)
     a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
                        is_causal=False)
     x = x + a
@@ -496,7 +564,10 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     recomputes each block in the backward pass.
 
     Grad mode is the caller's; with caches it must be off unless no
-    parameter requires a gradient (serving runs under ``no_grad``).
+    parameter requires a gradient (serving runs under ``no_grad``).  The
+    current mesh must be the one whose blocks the model holds (its
+    ``model`` and data extents).  With `shardings.SeqSplitCaches` every
+    data rank passes the whole batch and gets the whole logits.
     """
     _require_ported(cfg)
     grads = (torch.is_grad_enabled()
@@ -505,19 +576,21 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
         raise RuntimeError("forward with caches while grad mode is on and "
                            "parameters require grad: training passes no "
                            "caches, serving runs under torch.no_grad()")
-    m = SH.model_extent(SH.current_mesh())
-    if m != model.tp:
-        raise ValueError(f"the model holds blocks for model={model.tp}, the "
-                         f"current mesh has model={m}")
+    mesh = SH.current_mesh()
+    m, dsz = SH.model_extent(mesh), SH.data_extent(mesh)
+    if m != model.tp or dsz != model.fsdp:
+        raise ValueError(f"the model holds blocks for model={model.tp}, "
+                         f"data={model.fsdp}; the current mesh has "
+                         f"model={m}, data={dsz}")
     if m > 1:
         SH.check_tp(cfg, m)
-        if grads:
-            raise NotImplementedError(
-                "tensor-parallel training: the model-axis collectives have "
-                "no backward (queued in ROADMAP.md); run under "
-                "torch.no_grad() or with frozen parameters")
+    seq_split = isinstance(caches, SH.SeqSplitCaches)
+    if seq_split and (mesh is None or "data" not in mesh.axis_names):
+        raise ValueError("sequence-split caches need a mesh with a 'data' "
+                         "axis")
     tokens = torch.as_tensor(tokens, device=model.embed.device)
-    x = _embed(model, tokens, m) * math.sqrt(cfg.d_model)
+    embed = SH.fsdp_gather(model.embed)
+    x = _embed(embed, tokens, m) * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
         x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
                        .to(x.dtype), x], 1)
@@ -532,32 +605,35 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     enc_out = None
     if cfg.enc_layers and enc_frames is not None:
         frames = torch.as_tensor(enc_frames, device=x.device).to(x.dtype)
-        if caches is not None and caches["xk"].shape[2] != frames.shape[1]:
+        n_x = None if caches is None else caches["xk"].shape[2] * (
+            mesh.extent("data") if seq_split else 1)
+        if caches is not None and n_x != frames.shape[1]:
             raise ValueError(
                 f"{frames.shape[1]} encoder frames for a cross-attention "
-                f"cache of {caches['xk'].shape[2]}: pass enc_len= to "
-                f"init_caches")
+                f"cache of {n_x}: pass enc_len= to init_caches")
         enc_out = _run_encoder(model, cfg, frames, remat)
     if cfg.family == "hybrid":
         x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine,
-                        remat)
+                        remat, seq_split)
     else:
         x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
-                         enc_out, remat)
+                         enc_out, remat, seq_split)
     x = rmsnorm(SH.constrain_residual(x), model.final_gamma, cfg.norm_eps)
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    logits = SH.constrain_logits(SH.tp_gather(x @ head, -1))
+    # the tied embedding: one gather, its gradient from both uses summed
+    # before the reduce-scatter
+    head = embed.T if cfg.tie_embeddings else SH.fsdp_gather(model.lm_head)
+    logits = SH.constrain_logits(SH.tp_gather(SH.tp_enter(x) @ head, -1))
     return softcap(logits.float(), cfg.final_logit_softcap), caches
 
 
-def _embed(model: LM, tokens, m: int) -> torch.Tensor:
+def _embed(embed: torch.Tensor, tokens, m: int) -> torch.Tensor:
     """The embedding rows of ``tokens``; at a ``model`` extent m > 1 the
     rank holds a block of vocab rows: it looks up the tokens inside it,
     zeroes the others, and the rows are summed over model."""
     if m == 1:
-        return model.embed[tokens]
-    v_loc = model.embed.shape[0]
+        return embed[tokens]
+    v_loc = embed.shape[0]
     ids = tokens - SH.current_mesh().axis_index("model") * v_loc
     mine = (ids >= 0) & (ids < v_loc)
-    rows = model.embed[ids.clamp(0, v_loc - 1)]
+    rows = embed[ids.clamp(0, v_loc - 1)]
     return SH.tp_psum(torch.where(mine[..., None], rows, 0.0))

@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.mesh import device_of
-from repro_torch.models.transformer import LM, model_class, tp_keeper
+from repro_torch.models import shardings as SH
+from repro_torch.models.transformer import (LM, held_on, model_class,
+                                            tp_keeper)
 
 
 #: the port's per-layer module lists: the reference stacks each along a
@@ -47,12 +49,27 @@ def leaf_groups(model: LM) -> dict:
     return {path: Leaf(tuple(n), ndim[path]) for path, n in names.items()}
 
 
+def whole_tensors(model: LM, tensors: Optional[dict] = None) -> dict:
+    """{parameter name: the whole tensor} of the model's parameters, or of
+    ``tensors`` (one per parameter name, each shaped as the rank holds
+    the parameter: a gradient, a moment), reassembled from every rank's
+    blocks (`shardings.whole_leaf`) where the model holds a mesh's blocks
+    (a collective: every rank of that mesh calls it).  Detached."""
+    src = dict(model.named_parameters()) if tensors is None else tensors
+    mesh = model.mesh
+    if model.tp == 1 and model.fsdp == 1:
+        return {n: src[n].detach() for n, _ in model.named_parameters()}
+    return {n: SH.whole_leaf(n, src[n].detach(), model.cfg, mesh)
+            for n, _ in model.named_parameters()}
+
+
 def reference_tree(model: LM, tensors: Optional[dict] = None) -> dict:
     """The inverse of `params_from_jax`: the reference pytree (nested
     dicts of numpy arrays, ``blocks`` and ``enc_blocks`` stacked along
     the layer axis) of the model's parameters, or of ``tensors``, one
-    tensor per parameter name (e.g. the gradients)."""
-    src = dict(model.named_parameters()) if tensors is None else tensors
+    tensor per parameter name (e.g. the gradients); read whole from a
+    sharded model (`whole_tensors`: every rank calls it)."""
+    src = whole_tensors(model, tensors)
     tree = {}
     for path, leaf in leaf_groups(model).items():
         arrays = [src[n].detach().cpu().numpy() for n in leaf.names]
@@ -85,16 +102,16 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None,
     embeddings are untied, on ``device`` (None = CUDA).  ``blocks`` is
     split along ``n_layers``, the encoder's ``enc_blocks`` along
     ``enc_layers``.  With a ``mesh`` (on its rank's device) the rank
-    keeps its tensor-parallel block of each leaf (`shardings.tp_block`
-    given the leaf's path, e.g. ``blocks.mamba.in_proj``), as
-    ``transformer.init_params(..., mesh=)`` does, for every family."""
+    keeps its block of each leaf (`shardings.rank_block` given the
+    leaf's path, e.g. ``blocks.mamba.in_proj``: the tensor-parallel
+    block and its FSDP shard), as ``transformer.init_params(..., mesh=)``
+    does, for every family."""
     cls = model_class(cfg)
     dev = device_of(mesh, device)
-    keep, m = tp_keeper(cfg, mesh)
+    keep = tp_keeper(cfg, mesh)
     depth = {"blocks": cfg.n_layers, "enc_blocks": cfg.enc_layers}
     model = cls(cfg, {
         key: ([_to_torch(value, dev, i, keep) for i in range(depth[key])]
               if key in depth else _to_torch(value, dev, keep=keep, path=key))
         for key, value in tree.items()})
-    model.tp = m
-    return model
+    return held_on(model, mesh)

@@ -28,7 +28,10 @@ the rank's tensor-parallel blocks (``init_params(..., mesh=)``): every
 rank runs the batcher on the same requests, its caches hold every slot
 and the rank's heads (``init_caches(..., mesh=)``), the reused slot's
 state is zeroed on those local shapes, and each step runs under
-``shardings.use_mesh(mesh)``.  Telemetry is opt-in via ``telemetry=``
+``shardings.use_mesh(mesh)``.  A mesh whose data axes exceed 1 is
+refused: the reference's batcher takes no mesh, so it has no rule for
+splitting slots over data (nor for the sequence-split caches, whose
+per-row cursors the batch of slots would need).  Telemetry is opt-in via ``telemetry=``
 (`obs.live.ServeTelemetry`); the default `NULL_TELEMETRY` makes every
 hook a no-op.
 """

@@ -4,6 +4,15 @@ Both steps emit an ambient-recorder span (`obs.use`); with no recorder
 installed the cost is one attribute read on the NULL singleton.  Both
 run under ``torch.no_grad()``: serving a model that has just trained
 builds no graph.
+
+Under a mesh (``shardings.use_mesh``) with caches from
+``transformer.init_caches(..., mesh=)``: where the data axes divide the
+batch, each rank passes its rows; where they do not (B = 1, the
+reference's long-context decode), every data rank passes the whole batch
+and its caches hold its share of the sequence
+(`shardings.SeqSplitCaches`).  ``cache_pos`` is then the global position
+(an int: every row at one position), each rank writes only the
+positions it owns, and every rank gets the whole logits.
 """
 from __future__ import annotations
 

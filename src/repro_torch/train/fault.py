@@ -9,8 +9,9 @@ of ``repro/train/fault.py``).
   checkpoint after an (injected or real) failure, replaying the data
   stream deterministically from the restored step.  The step updates the
   model and optimizer state in place, and a restart restores into them.
-  Under a mesh (``shardings.use_mesh``) rank 0 writes the checkpoints,
-  every rank waits for it, and every rank restores.
+  Under a mesh (``shardings.use_mesh``) every rank gathers its blocks
+  into the checkpoint's whole leaves, rank 0 writes them, every rank
+  waits for it, and every rank restores its blocks.
 """
 from __future__ import annotations
 
@@ -55,12 +56,12 @@ def _sync(model) -> None:
 
 def _save(ckpt_dir: str, step: int, state, metrics: dict) -> None:
     """Rank 0 of the current mesh (or the only process) writes the
-    checkpoint; the other ranks wait until it is complete."""
+    checkpoint, every rank giving its blocks of the sharded leaves; the
+    other ranks wait until it is complete."""
     mesh = SH.current_mesh()
-    if mesh is None or mesh.rank == 0:
-        ckpt.save(ckpt_dir, step, state,
-                  extra={"metrics": {k: float(v) for k, v in
-                                     metrics.items()}})
+    ckpt.save(ckpt_dir, step, state,
+              extra={"metrics": {k: float(v) for k, v in metrics.items()}},
+              write=mesh is None or mesh.rank == 0)
     if mesh is not None:
         mesh.agree(True)
 

@@ -3,6 +3,10 @@
 Includes the WSD (warmup–stable–decay) schedule minicpm trains with
 (arXiv:2404.06395) and standard cosine.  The update reads each
 parameter's ``.grad`` and writes the parameters and moments in place.
+Under a mesh the parameters, gradients and moments are the rank's blocks
+(`shardings.rank_block`): the update is elementwise, the clip's norm is
+summed over the ranks with each element of a leaf counted once
+(`grad_norm`), and weight decay still goes by the reference leaf's rank.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.models import shardings as SH
 from repro_torch.models.weights import leaf_groups
 
 
@@ -68,6 +73,29 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def grad_norm(model) -> torch.Tensor:
+    """The global norm of the model's ``.grad``s: `global_norm` without a
+    mesh; under one, each rank's sum of squares over what it counts of
+    each leaf (`shardings.counted_once`: a replicated block on one rank,
+    Mamba2's B/C columns on model rank 0) psummed over every axis, so
+    each element of every leaf counts once."""
+    named = list(model.named_parameters())
+    mesh = SH.current_mesh()
+    if mesh is None or mesh.size == 1:
+        return global_norm(p.grad for _, p in named)
+    total = torch.zeros(1, device=named[0][1].device)
+    for name, p in named:
+        part = SH.counted_once(name, p.grad, model.cfg, mesh)
+        if part is False:
+            continue
+        g = p.grad.float() if part is True else p.grad.float()[..., part]
+        total += torch.sum(torch.square(g))
+    for a in mesh.axis_names:
+        if mesh.extent(a) > 1:
+            mesh.psum(total, a)
+    return torch.sqrt(total[0])
+
+
 def decayed(model) -> set:
     """The parameter names AdamW decays: those whose *reference* leaf has
     rank ≥ 2.  The reference stacks every block leaf along the layer
@@ -88,7 +116,7 @@ def adamw_update(model, opt_state: dict, cfg: OptConfig) -> dict:
     decay = decayed(model)
     named = list(model.named_parameters())
     step = opt_state["step"] + 1
-    gn = global_norm(p.grad for _, p in named)
+    gn = grad_norm(model)
     scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -6,13 +6,20 @@ The reference's step is pure (new params and optimizer state out); this
 one updates the model's parameters and the optimizer state in place, as
 the port's forward updates caches in place.
 
-Under a mesh (``shardings.use_mesh``) whose ``model`` extent is 1, the
-step is data-parallel: each rank passes its rows of the global batch,
-and the loss and every gradient are averaged over the data axes
-(`Mesh.psum`) before the int8 compression and AdamW, so every replica
-takes the same update, and the compression sees the global gradient, as
-the reference's does under pjit.  A ``model`` extent above 1 raises in
-the forward: its collectives have no backward.
+Under a mesh (``shardings.use_mesh``) the model holds its blocks of the
+mesh (`shardings.rank_block`) and each rank passes its rows of the
+global batch.  The backward gives every leaf its gradient as the rank
+holds the leaf: the FSDP gathers reduce-scatter the gradients of the
+sharded leaves (summed over the data ranks), and the ``model``-axis
+collectives have the backward that their transpose gives them
+(`core.mesh`).  `average_over_data` then divides the sharded leaves'
+gradients by the data extent and averages the others (and the loss)
+over the data axes, so the compression and AdamW see the global batch's
+gradient, as the reference's do under pjit: the int8 scale of a leaf is
+the max over every rank that holds a part of it, the error feedback
+stays per shard, and the clip's global norm counts each element once
+(`optimizer.global_norm`).  Every rank's parameters and moments are its
+blocks; a replicated leaf takes the same update on every rank.
 """
 from __future__ import annotations
 
@@ -49,13 +56,26 @@ def next_token_loss(model, cfg: ArchConfig, batch: dict,
     return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
+def group_amax(gs: list) -> torch.Tensor:
+    """The max |g| over the tensors ``gs`` of one reference leaf and, under
+    a mesh, over every rank that holds a part of it (a pmax over each
+    axis: the leaf's blocks on the data and model ranks)."""
+    amax = torch.stack([g.abs().max() for g in gs]).max()
+    mesh = SH.current_mesh()
+    if mesh is not None and mesh.size > 1:
+        for a in mesh.axis_names:
+            if mesh.extent(a) > 1:
+                amax = mesh.pmax(amax.reshape(1), a)[0]
+    return amax
+
+
 def _compress_group(gs: list, errs: list) -> tuple:
     """int8 quantization with error feedback (1-bit-Adam style) of the
     tensors that make one reference leaf, with ONE scale over all of
-    them, as the reference takes over the stacked leaf.  Returns the
-    dequantized gradients and the new errors."""
+    them (`group_amax`), as the reference takes over the stacked leaf.
+    Returns the dequantized gradients and the new errors."""
     gs = [g.float() + e for g, e in zip(gs, errs)]
-    scale = torch.stack([g.abs().max() for g in gs]).max() / 127.0 + 1e-12
+    scale = group_amax(gs) / 127.0 + 1e-12
     deq = [torch.clamp(torch.round(g / scale), -127, 127)
            .to(torch.int8).float() * scale for g in gs]
     return deq, [g - d for g, d in zip(gs, deq)]
@@ -83,20 +103,29 @@ def compress_grads(model, err: dict) -> None:
 
 @torch.no_grad()
 def average_over_data(model, loss: torch.Tensor, mesh) -> torch.Tensor:
-    """Replace every ``.grad`` by its mean over the data axes of ``mesh``
-    (in place) and return the mean of ``loss``: the gradient and loss of
-    the global batch, when each rank holds an equal share of its rows."""
+    """Make every ``.grad`` the mean over the data axes of ``mesh`` (in
+    place) and return the mean of ``loss``: the gradient and loss of the
+    global batch, when each rank holds an equal share of its rows.  An
+    FSDP shard's gradient arrives summed over the data ranks (the
+    gather's reduce-scatter) and is divided by the data extent; a leaf
+    the data axes do not shard is psummed over them first."""
     axes = [a for a in SH.fsdp_axes(mesh.axis_names) if mesh.extent(a) > 1]
     if not axes:
         return loss
     n = SH.data_extent(mesh)
-    loss = loss.detach().clone()
-    for t in [p.grad for p in model.parameters()
-              if p.grad is not None] + [loss]:
-        for a in axes:
-            mesh.psum(t, a)
+    loss = loss.detach().clone().reshape(1)
+    summed = [p.grad for p in model.parameters() if p.grad is not None
+              and getattr(p, "fsdp_dim", None) is not None]
+    partial = [p.grad for p in model.parameters() if p.grad is not None
+               and getattr(p, "fsdp_dim", None) is None] + [loss]
+    flat = torch.cat([t.reshape(-1) for t in partial])
+    for a in axes:
+        mesh.psum(flat, a)
+    for t, part in zip(partial, flat.split([t.numel() for t in partial])):
+        t.copy_(part.view_as(t))
+    for t in summed + partial:
         t.div_(n)
-    return loss
+    return loss[0]
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,

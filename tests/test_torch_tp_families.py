@@ -126,14 +126,18 @@ def test_collectives_of_one_forward(families):
     psums, two all-to-alls and the sequence's all-gather; rwkv6 per layer
     the time mix's norm and output and the channel mix's value product,
     and the receptance's all-gather; whisper per encoder layer two and
-    per decoder layer three psums; one logits all-gather each."""
+    per decoder layer three psums; one logits all-gather each.  rwkv6 runs
+    on (2, 2), where each leaf the spec shards over data is gathered
+    once (FSDP): per layer the time mix's wr, wk, wv, wg, wo and w1 and
+    the channel mix's wr, wk and wv, and the tied embedding."""
     _, _, ranks = families
     for out in ranks:
         assert out["calls/zamba2_2p7b/14"].tolist() == [1 + 2 * 4 + 2 * 2,
                                                         1, 0]
         assert out["calls/deepseek_v2_236b/14"].tolist() == [1 + 2 * 4,
                                                              4 + 1, 2 * 4]
-        assert out["calls/rwkv6_7b/22"].tolist() == [1 + 3 * 4, 4 + 1, 0]
+        assert out["calls/rwkv6_7b/22"].tolist() == [1 + 3 * 4,
+                                                     4 + 1 + 9 * 4 + 1, 0]
         assert out["calls/whisper_medium/14"].tolist() == [
             1 + 2 * 2 + 3 * 4, 1, 0]
 

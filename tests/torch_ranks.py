@@ -379,14 +379,17 @@ def stack_inputs() -> dict:
     return out
 
 
-def tie_records(torch, names, gs, errs, ties) -> dict:
+def tie_records(torch, names, gs, errs, ties, amax=None) -> dict:
     """The int8 compression's rounding ties, or'ed into ``ties``: per
     parameter name, the elements whose pre-quantization value g / scale
     (one scale over the group, as ``train_step._compress_group`` takes
-    it) lies within 5e-4 of a half-integer, where f32 noise may pick the
-    other int8 code."""
+    it: ``amax``, where given, is ``train_step.group_amax``, the max over
+    the ranks that hold parts of the leaf) lies within 5e-4 of a
+    half-integer, where f32 noise may pick the other int8 code."""
     g = [a.float() + e for a, e in zip(gs, errs)]
-    scale = torch.stack([a.abs().max() for a in g]).max() / 127.0 + 1e-12
+    top = (amax(g) if amax is not None
+           else torch.stack([a.abs().max() for a in g]).max())
+    scale = top / 127.0 + 1e-12
     out = {}
     for n, x in zip(names, g):
         r = (x / scale).cpu().numpy()
@@ -470,6 +473,15 @@ def ref_stack(inp: dict) -> dict:
     return out
 
 
+def _whole(SH, model, name: str, t):
+    """The whole parameter ``name`` (or a tensor shaped as the rank holds
+    it) from every rank's block, as numpy."""
+    if model.mesh is None:
+        return t.detach().cpu().numpy()
+    return SH.whole_leaf(name, t.detach(), model.cfg, model.mesh) \
+        .cpu().numpy()
+
+
 def _rows(mesh, b: int) -> slice:
     """The rank's rows of a global batch of ``b`` (split over the data
     axes)."""
@@ -484,7 +496,9 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
     and three data-parallel train steps on (data=4, model=1) with the
     int8 compression (the pre-quantization values g / scale that lie at a
     rounding tie recorded per parameter), then a checkpointed run with an
-    injected failure (rank 0 writes, every rank restores)."""
+    injected failure (rank 0 writes, every rank restores).  Under FSDP
+    the trained parameters and their ties are written whole, reassembled
+    from the ranks' shards."""
     import torch
     from repro_torch import obs
     from repro_torch.configs.base import get_config
@@ -493,7 +507,7 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import ParamTree
-    from repro_torch.models.weights import params_from_jax
+    from repro_torch.models.weights import params_from_jax, reference_tree
     from repro_torch.serve.serve_step import decode_step, prefill_step
     from repro_torch.train import fault
     from repro_torch.train import train_step as TS
@@ -519,7 +533,7 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
     cfg = stack_config("llama4_scout_17b_a16e", get_config)
     full = T.init_params(cfg, 5, device=dev)
     out["init_equal"] = np.asarray([all(
-        torch.equal(q, SH.tp_block(n, full.get_parameter(n), cfg, mesh))
+        torch.equal(q, SH.rank_block(n, full.get_parameter(n), cfg, mesh))
         for n, q in T.init_params(cfg, 5, device=dev, mesh=mesh)
         .named_parameters()) for mesh in (meshes["14"], meshes["22"])])
     counts = (ALL_REDUCE, ALL_GATHER, ALL_TO_ALL)
@@ -573,7 +587,8 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
     ties, real = {}, TS._compress_group
     for arch in DP_ARCHS:
         cfg = stack_config(arch, get_config)
-        model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg, device=dev)
+        model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg, device=dev,
+                                mesh=mesh)
         opt = TS.init_opt_state(model, grad_compress=True)
         step = TS.make_train_step(cfg, OptConfig(**DP_OPT), remat="full",
                                   grad_compress=True)
@@ -582,7 +597,7 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
         def recording(gs, errs):
             names = {id(q.grad): n for n, q in model.named_parameters()}
             ties.update(tie_records(torch, [names[id(a)] for a in gs], gs,
-                                    errs, ties))
+                                    errs, ties, TS.group_amax))
             return real(gs, errs)
 
         TS._compress_group = recording
@@ -597,11 +612,14 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
             TS._compress_group = real
         out[f"dp/{arch}/loss"] = np.asarray(losses)
         for n, q in model.named_parameters():
-            out[f"dp/{arch}/p/{n}"] = q.detach().cpu().numpy()
-            out[f"dp/{arch}/tie/{n}"] = ties[n]
+            out[f"dp/{arch}/p/{n}"] = _whole(SH, model, n, q)
+            out[f"dp/{arch}/tie/{n}"] = _whole(SH, model, n, torch.from_numpy(
+                ties[n]).float().to(dev)) > 0.5
     # checkpoints under the mesh: a failure injected at step 1 of 2
     cfg = stack_config("minicpm_2b", get_config)
-    small = T.init_params(cfg, 1, device="cpu").to(dev)
+    small = params_from_jax(reference_tree(T.init_params(cfg, 1,
+                                                         device="cpu")),
+                            cfg, device=dev, mesh=mesh)
     state = TS.init_opt_state(small)
     plain = TS.make_train_step(cfg, OptConfig(**DP_OPT), remat="none")
 
@@ -614,7 +632,7 @@ def rank_stack(rank: int, world: int, inp: dict, dev: str) -> dict:
             plain, small, state, data, 2, str(inp["ckpt_dir"]), ckpt_every=1,
             fail_at=1)
     out["ckpt_restarts"] = np.asarray(info["restarts"])
-    out["ckpt_embed"] = small.embed.detach().cpu().numpy()
+    out["ckpt_embed"] = _whole(SH, small, "embed", small.embed)
     return out
 
 
@@ -831,7 +849,8 @@ def rank_families(rank: int, world: int, inp: dict, dev: str) -> dict:
         mesh = meshes[name]
         full = T.init_params(cfg, 5, device=dev)
         out[f"init_equal/{arch}"] = np.asarray(all(
-            torch.equal(q, SH.tp_block(n, full.get_parameter(n), cfg, mesh))
+            torch.equal(q, SH.rank_block(n, full.get_parameter(n), cfg,
+                                         mesh))
             for n, q in T.init_params(cfg, 5, device=dev, mesh=mesh)
             .named_parameters()))
     return out
@@ -847,9 +866,291 @@ def leaves(tree, prefix=""):
             yield key, v
 
 
+# -- the data axis: FSDP, tensor-parallel training, context parallelism --------
+
+#: loss and every leaf's gradient on (data 2, model 2): dense and tied,
+#: MoE through ``moe_ffn_a2a``, the hybrid's chunked scan and
+#: ``tp_rmsnorm``, rwkv6's 2 heads over model = 2 (gathered receptance)
+GRAD_ARCHS = ("minicpm_2b", "llama4_scout_17b_a16e", "zamba2_2p7b",
+              "rwkv6_7b")
+GRAD_MESH, GRAD_B, GRAD_S = "22", 2, 16
+#: two whole int8-compressed steps on (2, 2)
+STEP_ARCHS, STEP_N = ("minicpm_2b", "llama4_scout_17b_a16e"), 2
+#: context-parallel prefill + decode at B = 1, per arch (max_len, prompt):
+#: gemma2's window of 32 crosses the ranks' boundaries (16 positions per
+#: rank on (4, 1)), zamba2's and whisper's O(1) states and cross caches
+#: beside the split ``attn.k/v`` and ``k``/``v``
+CP_RUNS = {"minicpm_2b": (64, 36), "deepseek_v2_236b": (64, 36),
+           "zamba2_2p7b": (16, 12), "whisper_medium": (64, 36),
+           "gemma2_9b": (64, 40)}
+CP_MESHES, CP_STEPS = ("41", "22"), 4
+
+
+def data_inputs() -> dict:
+    """The weights of every arch the data jobs run, as the reference's
+    pytree (the port's ``init_params`` at seed 0 read by
+    ``weights.reference_tree``: drawn in milliseconds, where the
+    reference's eager init takes seconds per arch), and their seeded
+    tokens and frames."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import reference_tree
+    rng = np.random.default_rng(17)
+    out = {}
+    for arch in sorted(set(GRAD_ARCHS) | set(STEP_ARCHS) | set(CP_RUNS)):
+        cfg = get_config(arch).reduced()
+        out.update(flat_tree(reference_tree(T.init_params(
+            cfg, 0, device="cpu")), f"w/{arch}"))
+        if arch in GRAD_ARCHS:
+            out[f"g_tokens/{arch}"] = rng.integers(
+                0, cfg.vocab, (GRAD_B, GRAD_S + 1)).astype(np.int32)
+        if arch in STEP_ARCHS:
+            out[f"s_tokens/{arch}"] = rng.integers(
+                0, cfg.vocab, (STEP_N, GRAD_B, GRAD_S + 1)).astype(np.int32)
+        if arch in CP_RUNS:
+            out[f"cp_tokens/{arch}"] = rng.integers(
+                0, cfg.vocab, (1, CP_RUNS[arch][1] + CP_STEPS)) \
+                .astype(np.int32)
+            if cfg.enc_layers:
+                out[f"cp_frames/{arch}"] = rng.standard_normal(
+                    (1, cfg.enc_positions, cfg.d_model)).astype(np.float32)
+    return out
+
+
+#: the reference's side, in three processes that run side by side
+REF_DATA = ("ref_data_grads", "ref_data_steps", "ref_data_cp")
+
+
+def ref_data_grads(inp: dict) -> dict:
+    """The JAX package under ``shardings.use_mesh`` of a (2, 2) mesh of
+    fake devices: ``jax.value_and_grad(next_token_loss)`` of each
+    `GRAD_ARCHS` arch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config
+    from repro.models import shardings as rSH
+    from repro.train import train_step as rTS
+    out = {}
+    with rSH.use_mesh(_jax_mesh(TP_MESHES[GRAD_MESH])):
+        for arch in GRAD_ARCHS:
+            cfg = get_config(arch).reduced()
+            params = jax.tree.map(jnp.asarray, nest_tree(inp, f"w/{arch}"))
+            loss, grads = jax.jit(jax.value_and_grad(rTS.next_token_loss),
+                                  static_argnums=(1, 3))(
+                params, cfg, {"tokens": jnp.asarray(inp[f"g_tokens/{arch}"])},
+                "full")
+            out[f"g/{arch}/loss"] = np.asarray(loss)
+            out.update(flat_tree(jax.tree.map(np.asarray, grads),
+                                 f"g/{arch}/grad"))
+    return out
+
+
+def ref_data_steps(inp: dict) -> dict:
+    """`STEP_N` int8-compressed ``train_step``s of each `STEP_ARCHS` arch
+    under a (2, 2) mesh of fake devices."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config
+    from repro.models import shardings as rSH
+    from repro.train import optimizer as rO
+    from repro.train import train_step as rTS
+    out = {}
+    with rSH.use_mesh(_jax_mesh(TP_MESHES[GRAD_MESH])):
+        for arch in STEP_ARCHS:
+            cfg = get_config(arch).reduced()
+            params = jax.tree.map(jnp.asarray, nest_tree(inp, f"w/{arch}"))
+            opt = rTS.init_opt_state(params, True)
+            step = jax.jit(rTS.make_train_step(
+                cfg, rO.OptConfig(**DP_OPT), remat="full",
+                grad_compress=True))
+            losses = []
+            for i in range(STEP_N):
+                params, opt, metrics = step(params, opt, {
+                    "tokens": jnp.asarray(inp[f"s_tokens/{arch}"][i])})
+                losses.append(float(metrics["loss"]))
+            out[f"s/{arch}/loss"] = np.asarray(losses)
+            out.update(flat_tree(jax.tree.map(np.asarray, params),
+                                 f"s/{arch}/ref"))
+    return out
+
+
+def ref_data_cp(inp: dict) -> dict:
+    """Each `CP_RUNS` arch's prefill (the hybrid's through ``decode_step``
+    token by token) and `CP_STEPS` teacher-forced decode steps at B = 1,
+    under each `CP_MESHES` mesh of fake devices."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config
+    from repro.models import shardings as rSH
+    from repro.models import transformer as rT
+    from repro.serve import serve_step as rS
+    out = {}
+    for arch, (max_len, p0) in CP_RUNS.items():
+        cfg = get_config(arch).reduced()
+        params = jax.tree.map(jnp.asarray, nest_tree(inp, f"w/{arch}"))
+        toks = jnp.asarray(inp[f"cp_tokens/{arch}"])
+        kw = ({"enc_frames": jnp.asarray(inp[f"cp_frames/{arch}"])}
+              if cfg.enc_layers else {})
+        for name in CP_MESHES:
+            with rSH.use_mesh(_jax_mesh(TP_MESHES[name])):
+                dec = jax.jit(lambda p, t, c, pos: rS.decode_step(
+                    p, cfg, t, c, pos))
+                caches = rT.init_caches(cfg, 1, max_len)
+                if cfg.family == "hybrid":
+                    for i in range(p0):
+                        lg, caches = dec(params, toks[:, i:i + 1], caches,
+                                         jnp.int32(i))
+                else:
+                    lg, caches = jax.jit(lambda p, t, c, kw: rS.prefill_step(
+                        p, cfg, t, c, **kw))(params, toks[:, :p0], caches,
+                                             kw)
+                steps = [lg]
+                for i in range(CP_STEPS):
+                    lg, caches = dec(params, toks[:, p0 + i:p0 + i + 1],
+                                     caches, jnp.int32(p0 + i))
+                    steps.append(lg)
+            out[f"cp/{arch}/{name}"] = np.stack([np.asarray(a)
+                                                 for a in steps], 1)
+    return out
+
+
+def rank_data(rank: int, world: int, inp: dict, dev: str) -> dict:
+    """The port's side of `REF_DATA`.  On (2, 2), from the same
+    weights, each rank on its row of the batch: the loss and every
+    gradient (``g/``, reassembled whole from the ranks' blocks) and each
+    rank's own blocks of the parameters and gradients (``gl/``, ``pl/``,
+    to hold the replicated ones bit for bit equal and the sharded ones
+    at 1/(D·M)); `STEP_N` int8-compressed steps (the parameters and
+    their rounding ties whole); a checkpoint of the trained llama4-scout
+    saved on (2, 2) and restored on (4, 1) and without a mesh (``ck/``:
+    the whole leaves read back equal).  Then each `CP_RUNS` arch at B = 1
+    on each `CP_MESHES` mesh: the prefill (token by token on the
+    hybrid), `CP_STEPS` decode steps, and the caches' per-rank shapes."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import params_from_jax, whole_tensors
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+    meshes = {name: Mesh.world(("data", "model"), TP_MESHES[name],
+                               device=dev) for name in ("22", "41")}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    out = {}
+    mesh = meshes[GRAD_MESH]
+    rows = _rows(mesh, GRAD_B)
+    for arch in GRAD_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg,
+                                device=dev, mesh=mesh).requires_grad_(True)
+        with SH.use_mesh(mesh):
+            loss = TS.next_token_loss(model, cfg, {
+                "tokens": t(inp[f"g_tokens/{arch}"][rows])}, "full")
+            loss.backward()
+            loss = TS.average_over_data(model, loss, mesh)
+        out[f"g/{arch}/loss"] = loss.detach().cpu().numpy()
+        grads = whole_tensors(model, {n: q.grad for n, q in
+                                      model.named_parameters()})
+        for n, q in model.named_parameters():
+            out[f"g/{arch}/grad/{n}"] = grads[n].cpu().numpy()
+            out[f"gl/{arch}/{n}"] = q.grad.cpu().numpy()
+            out[f"pl/{arch}/{n}"] = q.detach().cpu().numpy()
+    ties, real = {}, TS._compress_group
+    for arch in STEP_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg,
+                                device=dev, mesh=mesh)
+        opt = TS.init_opt_state(model, grad_compress=True)
+        step = TS.make_train_step(cfg, OptConfig(**DP_OPT), remat="full",
+                                  grad_compress=True)
+        ties.clear()
+
+        def recording(gs, errs):
+            names = {id(q.grad): n for n, q in model.named_parameters()}
+            ties.update(tie_records(torch, [names[id(a)] for a in gs], gs,
+                                    errs, ties, TS.group_amax))
+            return real(gs, errs)
+
+        TS._compress_group = recording
+        losses = []
+        try:
+            with SH.use_mesh(mesh):
+                for i in range(STEP_N):
+                    model, opt, metrics = step(model, opt, {
+                        "tokens": t(inp[f"s_tokens/{arch}"][i][rows])})
+                    losses.append(float(metrics["loss"]))
+        finally:
+            TS._compress_group = real
+        out[f"s/{arch}/loss"] = np.asarray(losses)
+        for n, q in model.named_parameters():
+            out[f"s/{arch}/p/{n}"] = _whole(SH, model, n, q)
+            out[f"s/{arch}/tie/{n}"] = _whole(SH, model, n, torch.from_numpy(
+                ties[n]).float().to(dev)) > 0.5
+    # elastic checkpoints: saved on (2, 2), restored on (4, 1) and alone
+    ckdir = str(inp["ckpt_dir"])
+    CK.save(ckdir, 1, (model, opt), write=mesh.rank == 0)
+    mesh.agree(True)
+
+    def whole_state(m, st):
+        return {f"{kind}/{n}": _whole(SH, m, n, src[n]) for kind, src in
+                (("p", dict(m.named_parameters())), ("mu", st["mu"]),
+                 ("nu", st["nu"]), ("err", st["err"]))
+                for n, _ in m.named_parameters()}
+
+    saved = whole_state(model, opt)
+    for name, m in (("41", meshes["41"]), ("none", None)):
+        other = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg,
+                                device=dev, mesh=m)
+        st = TS.init_opt_state(other, grad_compress=True)
+        CK.restore(ckdir, (other, st))
+        # the rank's blocks of the saved leaves (no collective)
+        got = {f"{kind}/{n}": src[n].detach().cpu().numpy() for kind, src in
+               (("p", dict(other.named_parameters())), ("mu", st["mu"]),
+                ("nu", st["nu"]), ("err", st["err"]))
+               for n, _ in other.named_parameters()}
+        want = {k: SH.rank_block(k.partition("/")[2], torch.from_numpy(a),
+                                 cfg, m).numpy() for k, a in saved.items()}
+        out[f"ck/{name}"] = np.asarray(
+            got.keys() == want.keys()
+            and all(np.array_equal(got[k], want[k]) for k in want)
+            and int(st["step"]) == int(opt["step"]))
+    # context parallelism at B = 1
+    with torch.no_grad():
+        for arch, (max_len, p0) in CP_RUNS.items():
+            cfg = get_config(arch).reduced()
+            toks = t(inp[f"cp_tokens/{arch}"])
+            frames = (t(inp[f"cp_frames/{arch}"]) if cfg.enc_layers
+                      else None)
+            for name in CP_MESHES:
+                m = meshes[name]
+                model = params_from_jax(nest_tree(inp, f"w/{arch}"), cfg,
+                                        device=dev, mesh=m)
+                with SH.use_mesh(m):
+                    caches = T.init_caches(cfg, 1, max_len, device=dev,
+                                           mesh=m)
+                    steps = [prefill_step(model, cfg, toks[:, :p0], caches,
+                                          enc_frames=frames)[0]]
+                    for i in range(CP_STEPS):
+                        steps.append(decode_step(
+                            model, cfg, toks[:, p0 + i:p0 + i + 1], caches,
+                            p0 + i)[0])
+                out[f"cp/{arch}/{name}"] = torch.stack(steps, 1) \
+                    .cpu().numpy()
+                for key, c in leaves(caches):
+                    out[f"cpc/{arch}/{name}/{key}"] = np.asarray(c.shape)
+    return out
+
+
 # -- the port on 4 cards against its 4 CPU ranks --------------------------------
 
-JOBS = ("rank_parhip", "rank_parhyp", "rank_memetic", "rank_stack")
+JOBS = ("rank_parhip", "rank_parhyp", "rank_memetic", "rank_stack",
+        "rank_data")
 # outputs no generator draw feeds: bit for bit the CPU ranks'
 EXACT = {"rank_parhip": ("labels",),
          "rank_parhyp": ("draws4", "draws41", "draws14", "levels",
@@ -857,7 +1158,8 @@ EXACT = {"rank_parhip": ("labels",),
          "rank_memetic": ("roll4", "roll6", "roll8", "ppermutes4",
                           "ppermutes6", "ppermutes8"),
          "rank_stack": ("kv/", "calls/", "placed_", "ckpt_restarts",
-                        "probe_", "init_equal")}
+                        "probe_", "init_equal"),
+         "rank_data": ("cpc/", "ck/", "pl/")}
 # float outputs of the stack job: within 1e-4 of the CPU ranks' max |x|
 # (other summation orders on the card), the trained parameters within 1e-5
 # of their max |p| outside either run's int8 rounding ties
@@ -869,6 +1171,7 @@ def expect(d: Path) -> None:
     """The inputs and the 4 gloo ranks' outputs of every job, under d."""
     (d / "cpu").mkdir(parents=True, exist_ok=True)
     shutil.rmtree(d / "cpu" / "ckpt", ignore_errors=True)
+    shutil.rmtree(d / "cpu" / "data-ckpt", ignore_errors=True)
     from repro_torch.core.hypergraph.dist import shard_hypergraph
     from repro_torch.core.parhip import shard_graph
     from repro_torch.io.generators import grid2d, planted_hypergraph
@@ -878,14 +1181,19 @@ def expect(d: Path) -> None:
                   shard_hypergraph(planted_hypergraph(**HG), 1).n_pad, 4)),
               "rank_memetic": {},
               "rank_stack": dict(stack_inputs(),
-                                 ckpt_dir=str(d / "cpu" / "ckpt"))}
+                                 ckpt_dir=str(d / "cpu" / "ckpt")),
+              "rank_data": dict(data_inputs(),
+                                ckpt_dir=str(d / "cpu" / "data-ckpt"))}
     for job in JOBS:
         run_ranks(job, 4, d / "cpu", **inputs[job])
 
 
 def stack_local(job: str, key: str) -> bool:
-    """Outputs of the stack job that are a rank's own: its rows of the
-    batch, its experts, its KV heads (the rest is replicated)."""
+    """Outputs of the stack and data jobs that are a rank's own: its rows
+    of the batch, its experts, its KV heads, its blocks of the parameters
+    and gradients (the rest is replicated)."""
+    if job == "rank_data":
+        return key.startswith(("gl/", "pl/"))
     if job != "rank_stack":
         return False
     return key.startswith(("fwd/", "dec/", "kv/", "a2a", "placed_w_gate",
@@ -911,6 +1219,35 @@ def stack_close(cpu: dict, got: dict) -> list:
     return bad
 
 
+def data_close(cpu: dict, got: dict) -> list:
+    """The data job's float outputs on a card against the CPU rank's: the
+    logits, losses and gradients within 1e-4 of max |x| (a gradient
+    leaf below 1e-6 of its arch's largest is zero in exact arithmetic:
+    it must stay below that bound), the trained parameters within 1e-5
+    of max |p| outside either run's int8 rounding ties."""
+    bad = []
+    top = {}
+    for key, want in cpu.items():
+        if key.startswith(("g/", "gl/")) and "/loss" not in key:
+            arch = key.split("/")[1]
+            top[arch] = max(top.get(arch, 0.0), float(np.abs(want).max()))
+    for key, want in cpu.items():
+        if key.startswith(("cp/", "g/", "gl/")) or key.endswith("/loss"):
+            scale = float(np.abs(want).max())
+            floor = 1e-6 * top.get(key.split("/")[1], 0.0)
+            err = float(np.abs(got[key] - want).max())
+            if (scale <= floor and float(np.abs(got[key]).max()) > floor) \
+                    or (scale > floor and err > 1e-4 * scale):
+                bad.append(f"rank_data: {key} off by {err:g}")
+        elif key.startswith("s/") and "/p/" in key:
+            keep = ~(cpu[key.replace("/p/", "/tie/")]
+                     | got[key.replace("/p/", "/tie/")])
+            err = float(np.abs(got[key] - want)[keep].max(initial=0.0))
+            if err > 1e-5 * float(np.abs(want).max()):
+                bad.append(f"rank_data: {key} off by {err:g}")
+    return bad
+
+
 def _contracts(job: str, ranks: list) -> list:
     """The failures of the contracts that hold whatever the draws: every
     output but a rank's own shard (pv, pe, mask of a level) replicated."""
@@ -930,6 +1267,9 @@ def _contracts(job: str, ranks: list) -> list:
             bad.append("parhyp (2, 2) infeasible or not coarsened")
     if job == "rank_stack" and int(out["ckpt_restarts"]) != 1:
         bad.append("the checkpointed run did not restart once")
+    if job == "rank_data" and not all(bool(o[k]) for o in ranks
+                                      for k in o if k.startswith("ck/")):
+        bad.append("a checkpoint saved on (2, 2) restored other leaves")
     if job == "rank_memetic":
         if not np.array_equal(out["kaffpaE_mesh"], out["kaffpaE_none"]):
             bad.append("kaffpaE over the mesh differs from mesh=None")
@@ -952,11 +1292,14 @@ def cuda_check(d: Path) -> int:
         if job == "rank_stack":
             for r in range(4):
                 bad += stack_close(cpu[r], ranks[r])
+        if job == "rank_data":
+            for r in range(4):
+                bad += data_close(cpu[r], ranks[r])
         keys = list(EXACT[job])
         if job == "rank_parhyp":
             keys += [f"{f}{i}" for i in range(int(cpu[0]["levels"]))
                      for f in LEVEL_FIELDS if f"{f}{i}" in cpu[0]]
-        if job == "rank_stack":
+        if job in ("rank_stack", "rank_data"):
             keys = [k for k in cpu[0] if k.startswith(tuple(keys))]
         for r in range(4):
             for key in keys:

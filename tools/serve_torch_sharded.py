@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The port's decoder stack across 4 cards: tensor and expert parallelism
-over ``model``, data parallelism over ``data``.
+over ``model``; data parallelism, FSDP (ZeRO-3) and context parallelism
+over ``data``.
 
     python3 tools/serve_torch_sharded.py [--out DIR] [--modes M,M,...]
     python3 tools/serve_torch_sharded.py --device cpu    # a CPU rehearsal
@@ -31,10 +32,10 @@ below), each model freed before the next:
           decode check (``prefill_step(prefix_embeds=)``).
 ``dp``    minicpm-2B whole: one card alone (rank 0, B = 1), then
           data-parallel on (data 4, model 1), each card B = 1 of a global
-          batch of 4 x 2048 tokens, remat "full", AdamW/WSD: a warm-up
-          and 3 timed steps each, tokens/s; the 4 replicas' parameters
-          bit for bit equal after the steps (a MIN and a MAX over the
-          ranks of every tensor).
+          batch of 4 x 2048 tokens and 1/4 of every sharded leaf (FSDP),
+          remat "full", AdamW/WSD: a warm-up and 3 timed steps each,
+          tokens/s; the leaves FSDP leaves whole bit for bit equal on the
+          4 cards after the steps (a MIN and a MAX over the ranks).
 ``deepseek_cut`` deepseek-v2 at full width, 2 layers, capacity factor 8,
           as ``cut`` (B = 1, L = 2048).
 ``deepseek`` deepseek-v2 at full width (MLA with 128 heads, 160 experts of
@@ -53,13 +54,32 @@ below), each model freed before the next:
           heads = 20 on each rank) and holds layer 0's per-rank scan
           against ``ref.ssd_scan_grouped_ref`` within 3e-4 (abs + rel,
           the tolerance of tests/test_kernels.py).
+``gemma2_cut`` gemma2-9B at full width, 2 layers: 3 steps of 2 x 4096
+          tokens on (data 2, model 2), parameters sharded over both axes,
+          against rank 0's one card (the same batches as 2 microbatches),
+          within 1e-5 of max |p| (AdamW at eps 1e-3).
+``gemma2_train`` gemma2-9B whole (42 layers, 9.24 B parameters: 147.86 GB
+          of f32 parameters, gradients and moments, 36.96 GB per rank) on
+          (2, 2): a warm-up and 3 timed steps of 2 x 4096 tokens (one row
+          per data rank), remat "full", AdamW/WSD, from seed 0: ms per
+          step, tokens/s, FLOP/s (8·N·T), peak memory per rank, the
+          all-gathers, reduce-scatters and all-reduces per step.
+``zamba2_cp_cut`` zamba2-2.7B whole at B = 1, max_len 32768: caches filled
+          from seeded draws (`fill_zamba2`) to 32752, then 16 decode steps
+          on (2, 2), the KV caches' sequence split over data, against
+          rank 0's one card from the same draws, within 1e-4 of max
+          |logits|.
+``zamba2_long`` the same at max_len 524288 (``SHAPES["long_500k"]``):
+          24.16 GB of ``attn.k/v`` per rank; ms per step against the
+          read bound, cache bytes, peak memory, collectives per step.
 
 Rank 0 prints what it measured, with each card's name and power limit;
 the last line is one JSON object of every rank's results, also written to
 ``--out``/result.json.  Exits non-zero when a check fails or a rank dies.
 With ``--device cpu`` the ranks join with gloo and run the ``reduced()``
 configs at small shapes (rwkv6's widened to d_model 128: its 2 heads do
-not split over 4 ranks).  Imports nothing of jax or of the JAX package.
+not split over 4 ranks; gemma2 on 32 tokens a row, zamba2 at max_len 64
+and 128).  Imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
@@ -83,15 +103,22 @@ LLAMA, INTERNVL, MINICPM = ("llama4_scout_17b_a16e", "internvl2_26b",
                             "minicpm_2b")
 DEEPSEEK, ZAMBA2, RWKV6, WHISPER = ("deepseek_v2_236b", "zamba2_2p7b",
                                     "rwkv6_7b", "whisper_medium")
+GEMMA2 = "gemma2_9b"
 # (the card's sizes, the CPU rehearsal's sizes); ``dec_tokens``: whisper's
 # decoder tokens beside its encoder frames
+# ``train_seq``: gemma2's tokens per row (``SHAPES["train_4k"]``);
+# ``long_len``/``cut_len``: zamba2's max_len (``SHAPES["long_500k"]``) and
+# its one-card cut; ``fill_chunk``: the positions of one seeded cache draw
 SIZES = {
     "cuda": dict(depth=24, cut_depth=2, fwd=(2, 2048), cut_fwd=(1, 2048),
                  calib=510, prompt=64, steps=16, dp_seq=2048, dp_timed=3,
-                 ds_fwd=(1, 2048), dec_tokens=448),
+                 ds_fwd=(1, 2048), dec_tokens=448, train_seq=4096,
+                 train_timed=3, long_len=524288, cut_len=32768,
+                 fill_chunk=4096),
     "cpu": dict(depth=4, cut_depth=2, fwd=(2, 32), cut_fwd=(1, 32),
                 calib=30, prompt=8, steps=4, dp_seq=32, dp_timed=2,
-                ds_fwd=(1, 32), dec_tokens=16),
+                ds_fwd=(1, 32), dec_tokens=16, train_seq=32, train_timed=2,
+                long_len=128, cut_len=64, fill_chunk=16),
 }
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FREE_BYTES = 15e9              # what deepseek's depth leaves free per card
@@ -126,6 +153,7 @@ class Rank:
         self.cuda = self.dev.type == "cuda"
         self.tp = Mesh.world(("data", "model"), (1, WORLD), device=dev)
         self.dp = Mesh.world(("data", "model"), (WORLD, 1), device=dev)
+        self.both = Mesh.world(("data", "model"), (2, 2), device=dev)
         self.out = {}
         self.gen = torch.Generator(device=self.dev).manual_seed(7)
         #: the cards' names and power limits, on rank 0 of a CUDA run
@@ -195,9 +223,10 @@ def counted(r: Rank, fn):
     """(fn(), the mesh collectives and SSD scan calls it issued on this
     rank)."""
     from repro_torch import obs
-    from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, ALL_TO_ALL
+    from repro_torch.core.mesh import (ALL_GATHER, ALL_REDUCE, ALL_TO_ALL,
+                                       REDUCE_SCATTER)
     from repro_torch.kernels.ssd_scan import LAUNCHES
-    names = (ALL_TO_ALL, ALL_REDUCE, ALL_GATHER, LAUNCHES)
+    names = (ALL_TO_ALL, ALL_REDUCE, ALL_GATHER, REDUCE_SCATTER, LAUNCHES)
     before = {n: obs.metrics.get(n) for n in names}
     out = fn()
     return out, {n.split("/")[1]: int(obs.metrics.get(n) - before[n])
@@ -478,7 +507,7 @@ def ssd_rank_check(r: Rank, model, cfg, toks) -> dict:
     blk = model.blocks[0]
     nh = M2.heads(blk.mamba)
     with torch.no_grad(), SH.use_mesh(r.tp):
-        x0 = T._embed(model, toks, WORLD) * math.sqrt(cfg.d_model)
+        x0 = T._embed(model.embed, toks, WORLD) * math.sqrt(cfg.d_model)
         _, _, x_eff, ld, bmat, cmat, _ = M2.scan_inputs(
             blk.mamba, rmsnorm(x0, blk.ln1, cfg.norm_eps), cfg)
     ins = M2.merge_heads(x_eff, ld, bmat, cmat)
@@ -540,7 +569,8 @@ def family_mode(r: Rank, arch: str) -> None:
 
 
 def train_run(r: Rank, cfg, mesh, shard: int, n_shards: int) -> dict:
-    """A warm-up and timed steps of minicpm at B = 1 per card."""
+    """A warm-up and timed steps of minicpm at B = 1 per card (on a mesh,
+    each card holding its FSDP shards)."""
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     from repro_torch.train.data import DataConfig, batches
@@ -548,7 +578,7 @@ def train_run(r: Rank, cfg, mesh, shard: int, n_shards: int) -> dict:
     from repro_torch.train.train_step import init_opt_state, make_train_step
     s = r.sizes
     r.reset_peak()
-    model = T.init_params(cfg, 0, device=r.dev)
+    model = T.init_params(cfg, 0, device=r.dev, mesh=mesh)
     opt = init_opt_state(model)
     step = make_train_step(cfg, OptConfig(), remat="full")
     data = batches(DataConfig(cfg.vocab, s["dp_seq"], n_shards), shard=shard,
@@ -584,16 +614,301 @@ def phase_dp(r: Rank) -> None:
     dp = train_run(r, cfg, r.dp, r.rank, WORLD)
     r.check(all(math.isfinite(x) for x in dp["losses"]),
             f"non-finite data-parallel losses {dp['losses']}")
-    same = all(r.agree(p.detach()) for p in dp.pop("model").parameters())
+    # the leaves the data axis does not shard are replicas
+    same = all(r.agree(p.detach()) for p in dp.pop("model").parameters()
+               if p.fsdp_dim is None)
     r.out["dp"] = {"one_card": one, "four_cards": dp, "replicas_equal": same}
     if r.rank == 0:
         r.log(f"{cfg.name} data-parallel on (data 4, model 1), each card B=1 "
               f"S={r.sizes['dp_seq']}: {dp['step_s']:.4f} s per step, "
               f"{dp['tokens_per_s']:.1f} tokens/s ({dp['tokens_per_s'] / one['tokens_per_s']:.3f}x "
               f"one card's), losses {[round(x, 4) for x in dp['losses']]}, "
-              f"peak {dp['peak_bytes'] / 2**30:.2f} GiB; the 4 replicas' "
-              f"parameters bit for bit equal: {same}")
+              f"peak {dp['peak_bytes'] / 2**30:.2f} GiB (FSDP: each card "
+              f"1/4 of every sharded leaf); the unsharded leaves bit for "
+              f"bit equal on the 4 cards: {same}")
     r.check(same, "the data-parallel replicas' parameters differ")
+
+
+# -- the data axis on (data 2, model 2): FSDP training, long-context decode -----
+
+def whole_rel(r: Rank, model, want: dict) -> float:
+    """The largest over ``model``'s parameters (held as blocks of its
+    mesh, reassembled whole on every rank) of max |p − want| / max
+    |want|, on rank 0, where ``want`` holds the one-card parameters."""
+    from repro_torch.models import shardings as SH
+    worst = 0.0
+    for name, p in model.named_parameters():
+        whole = SH.whole_leaf(name, p.detach(), model.cfg, model.mesh)
+        if r.rank == 0:
+            worst = max(worst, rel(r.torch, whole, want[name]))
+        del whole
+    return worst
+
+
+def gemma2_batches(r: Rank, cfg, n: int) -> list:
+    """``n`` seeded global batches of 2 rows of ``train_seq`` + 1 tokens
+    (``SHAPES["train_4k"]``'s length), the same on every rank."""
+    gen = r.torch.Generator(device=r.dev).manual_seed(57)
+    return [r.torch.randint(0, cfg.vocab, (2, r.sizes["train_seq"] + 1),
+                            generator=gen, device=r.dev) for _ in range(n)]
+
+
+def train_steps(r: Rank, cfg, model, mesh, batches, opt_cfg,
+                microbatches: int = 1) -> dict:
+    """One step per batch (each data rank its row of it) with remat
+    "full" and AdamW; the first is a warm-up.  Returns the walls, losses
+    and, per timed step, the collectives."""
+    from repro_torch.models import shardings as SH
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, opt_cfg, remat="full",
+                           microbatches=microbatches)
+    i, n = (0, 1) if mesh is None else SH.block_index("data", mesh)
+    walls, losses, calls = [], [], []
+    with (SH.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        for k, batch in enumerate(batches):
+            rows = batch[i * 2 // n:(i + 1) * 2 // n]
+            ((_, _, m), c), wall = r.timed(lambda: counted(
+                r, lambda: step(model, opt, {"tokens": rows})))
+            losses.append(float(m["loss"]))
+            if k:
+                walls.append(wall)
+                calls.append(c)
+    for p in model.parameters():
+        p.grad = None
+    del opt
+    return {"walls": walls, "losses": losses, "calls": calls}
+
+
+def phase_gemma2_cut(r: Rank) -> None:
+    """gemma2-9B at full width, 2 layers: 3 steps on (2, 2) (FSDP + TP)
+    against rank 0's one-card steps on the same global batches (as 2
+    microbatches of one row), within 1e-5 of max |p| of every
+    parameter.  AdamW at eps 1e-3, as the CPU parity tests take it."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig
+    torch = r.torch
+    cfg = r.config(GEMMA2, 2)
+    opt_cfg = OptConfig(peak_lr=2e-3, warmup_steps=2, eps=1e-3)
+    batches = gemma2_batches(r, cfg, 3)
+    want, one = {}, None
+    if r.rank == 0:
+        r.reset_peak()
+        model = T.init_params(cfg, 0, device=r.dev)
+        one = train_steps(r, cfg, model, None, batches, opt_cfg, 2)
+        one["peak_bytes"] = r.peak()
+        want = {n: p.detach() for n, p in model.named_parameters()}
+        del model
+    r.both.agree(True)
+    r.reset_peak()
+    model = T.init_params(cfg, 0, mesh=r.both)
+    got = train_steps(r, cfg, model, r.both, batches, opt_cfg)
+    peaks = r.peaks()
+    err = whole_rel(r, model, want)
+    res = {"one_card": one, "four_cards": got, "max_rel": err,
+           "peak_bytes_by_rank": peaks}
+    if r.rank == 0:
+        r.log(f"{cfg.name} {cfg.n_layers} layers at full width, 3 steps of "
+              f"2 x {r.sizes['train_seq']} tokens (remat full, AdamW eps "
+              f"1e-3, f32): on (data 2, model 2) vs one card: max |p - "
+              f"p_one| / max |p_one| over the parameters {err:g} (max "
+              f"1e-5); step walls {[round(w, 4) for w in got['walls']]} s "
+              f"(one card {[round(w, 4) for w in one['walls']]} s), "
+              f"losses {[round(x, 5) for x in got['losses']]} (one card "
+              f"{[round(x, 5) for x in one['losses']]}); peak per rank "
+              f"{[round(p / 2**30, 2) for p in peaks]} GiB (one card "
+              f"{one['peak_bytes'] / 2**30:.2f}) [{r.card}]")
+    r.check(err <= 1e-5, f"{cfg.name}: the (2, 2) steps differ from one "
+            f"card: {err}")
+    r.out["gemma2_cut"] = res
+
+
+def phase_gemma2_train(r: Rank) -> None:
+    """gemma2-9B whole at full width on (2, 2), FSDP + TP: a warm-up and
+    `train_timed` steps of 2 x ``train_seq`` tokens, one row per data
+    rank, remat "full", AdamW/WSD, f32, from seed 0."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig
+    torch, s = r.torch, r.sizes
+    cfg = r.config(GEMMA2)
+    r.reset_peak()
+    model, secs = r.timed(lambda: T.init_params(cfg, 0, mesh=r.both))
+    local = sum(p.numel() for p in model.parameters())
+    batches = gemma2_batches(r, cfg, 1 + s["train_timed"])
+    got = train_steps(r, cfg, model, r.both, batches, OptConfig())
+    peaks = r.peaks()
+    walls = sorted(got["walls"])
+    med = walls[len(walls) // 2]
+    tokens = 2 * s["train_seq"]
+    flops = 8 * cfg.param_count() * tokens      # remat: forward twice
+    res = {"step_s": got["walls"], "step_s_median": med,
+           "tokens_per_s": tokens / med, "flop_per_s": flops / med,
+           "flop_per_step": flops, "losses": got["losses"],
+           "peak_bytes_by_rank": peaks, "calls_per_step": got["calls"],
+           "state_bytes_per_rank": 16 * local, "init_s": secs,
+           "param_count": cfg.param_count()}
+    r.log(f"{cfg.name} {cfg.n_layers} layers, {cfg.param_count()} "
+          f"parameters, on (data 2, model 2) FSDP + TP: made in {secs:.3f} "
+          f"s; state (params, grads, mu, nu in f32) {16 * local} B "
+          f"({16 * local / 1e9:.2f} GB) per rank; step of 2 x "
+          f"{s['train_seq']} tokens (remat full, AdamW/WSD, f32): walls "
+          f"{[round(w, 4) for w in got['walls']]} s, median {med:.4f} s, "
+          f"{tokens / med:.1f} tokens/s, {flops / med / 1e12:.2f} TFLOP/s "
+          f"over 4 cards ({flops:.3e} FLOP per step, 8·N·T); losses "
+          f"{[round(x, 4) for x in got['losses']]}; peak per rank "
+          f"{[round(p / 2**30, 2) for p in peaks]} GiB; collectives per "
+          f"timed step {json.dumps(got['calls'])} [{r.card}]")
+    r.check(all(math.isfinite(x) for x in got["losses"]),
+            f"non-finite losses {got['losses']}")
+    r.out["gemma2_train"] = res
+
+
+def fill_zamba2(torch, caches, cfg, upto: int, chunk: int, seed: int,
+                mesh, dev) -> None:
+    """Seeded draws into zamba2's caches, as one card holds them or as a
+    rank of ``mesh`` (the sequence split over ``data``, the heads over
+    ``model``): ``attn.k``/``v`` at the global positions below ``upto``,
+    drawn in chunks of ``chunk`` positions whose seed is the group, the
+    tensor and the chunk's index (a layout changes no number), and the
+    ``ssm``/``conv`` states drawn whole and cut to the rank's heads and
+    channels."""
+    from repro_torch.models import shardings as SH
+    k = caches["attn"]["k"]
+    groups, b, n_loc, kv_loc, hd = k.shape
+    m = SH.model_extent(mesh)
+    j = mesh.axis_index("model") if m > 1 else 0
+    lo = mesh.axis_index("data") * n_loc if isinstance(
+        caches, SH.SeqSplitCaches) else 0
+    if n_loc % chunk:
+        raise ValueError(f"{n_loc} positions per rank in chunks of {chunk}")
+    gen = torch.Generator(device=dev)
+    for g in range(groups):
+        for w, t in enumerate((caches["attn"]["k"], caches["attn"]["v"])):
+            for c0 in range(lo, min(lo + n_loc, upto), chunk):
+                gen.manual_seed(seed * 1_000_003 + (2 * g + w) * 65_536
+                                + c0 // chunk)
+                blk = torch.randn(b, chunk, cfg.n_kv_heads, hd,
+                                  generator=gen, device=dev) * 0.5
+                n = min(chunk, upto - c0)
+                t[g, :, c0 - lo:c0 - lo + n] = \
+                    blk[:, :n, j * kv_loc:(j + 1) * kv_loc]
+    gen.manual_seed(seed)
+    layers, _, nh_loc = caches["ssm"].shape[:3]
+    ssm = torch.randn((layers, b, cfg.ssm_nheads) + caches["ssm"].shape[3:],
+                      generator=gen, device=dev) * 0.1
+    caches["ssm"].copy_(ssm[:, :, j * nh_loc:(j + 1) * nh_loc])
+    conv = torch.randn(caches["conv"].shape[:3]
+                       + (cfg.d_inner + 2 * cfg.ssm_state,), generator=gen,
+                       device=dev) * 0.5
+    caches["conv"].copy_(SH.tp_block("mamba.conv_b", conv, cfg, mesh))
+
+
+def zamba2_decode(r: Rank, cfg, model, mesh, max_len: int) -> dict:
+    """B = 1: the caches filled from seeded draws (`fill_zamba2`) up to
+    max_len − ``steps``, then ``steps`` teacher-forced decode steps to
+    the end; returns the logits, walls, collectives per step and the
+    rank's cache bytes."""
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step
+    torch, s = r.torch, r.sizes
+    upto = max_len - s["steps"]
+    gen = torch.Generator(device=r.dev).manual_seed(58)
+    toks = torch.randint(0, cfg.vocab, (1, s["steps"]), generator=gen,
+                         device=r.dev)
+    caches = T.init_caches(cfg, 1, max_len, device=r.dev, mesh=mesh)
+    fill_zamba2(torch, caches, cfg, upto, s["fill_chunk"], 58, mesh, r.dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (caches["attn"]["k"], caches["attn"]["v"],
+                                caches["ssm"], caches["conv"]))
+    logits, walls, calls = [], [], []
+    with torch.no_grad(), (SH.use_mesh(mesh) if mesh is not None
+                           else contextlib.nullcontext()):
+        for i in range(s["steps"]):
+            (lg, c), wall = r.timed(lambda: counted(r, lambda: decode_step(
+                model, cfg, toks[:, i:i + 1], caches, upto + i)[0]))
+            logits.append(lg)
+            walls.append(wall)
+            calls.append(c)
+    del caches
+    return {"logits": torch.stack(logits, 1), "walls": walls,
+            "calls": calls, "cache_bytes": cache_bytes}
+
+
+def phase_zamba2_cp_cut(r: Rank) -> None:
+    """zamba2-2.7B whole at B = 1, max_len ``cut_len``: the decode on
+    (data 2, model 2), caches split by sequence over data, against rank
+    0's one card from the same draws, within 1e-4 of max |logits|."""
+    from repro_torch.models import transformer as T
+    torch, s = r.torch, r.sizes
+    cfg = r.config(ZAMBA2)
+    want = None
+    if r.rank == 0:
+        model = T.init_params(cfg, 0, device=r.dev)
+        want = zamba2_decode(r, cfg, model, None, s["cut_len"])["logits"]
+        del model
+    r.both.agree(True)
+    r.reset_peak()
+    model = T.init_params(cfg, 0, mesh=r.both)
+    got = zamba2_decode(r, cfg, model, r.both, s["cut_len"])
+    err = rel(torch, got["logits"], want) if r.rank == 0 else 0.0
+    walls = sorted(got["walls"])
+    res = {"max_rel": err, "cache_bytes": got["cache_bytes"],
+           "decode_ms_median": walls[len(walls) // 2] * 1e3}
+    r.log(f"{cfg.name} B=1 max_len={s['cut_len']}: {s['steps']} decode "
+          f"steps on (data 2, model 2), the KV cache's sequence split over "
+          f"data ({got['cache_bytes']} B of caches per rank), vs one card "
+          f"from the same draws: max |err| / max |logits| {err:g} (max "
+          f"1e-4); ms per step median {res['decode_ms_median']:.3f} "
+          f"[{r.card}]")
+    r.check(err <= 1e-4, f"{cfg.name}: the context-parallel decode differs "
+            f"from one card: {err}")
+    r.out["zamba2_cp_cut"] = res
+
+
+def phase_zamba2_long(r: Rank) -> None:
+    """zamba2-2.7B whole at B = 1, max_len ``long_len``
+    (``SHAPES["long_500k"]``) on (data 2, model 2): the caches filled
+    from seeded draws to max_len − ``steps`` (the hybrid's prefill runs
+    token by token: that many prompt steps are out of reach), then
+    ``steps`` decode steps: ms per step, the rank's cache bytes, peak
+    memory, the collectives per step, and the step's read bound (the
+    rank's gathered weights and its caches at the card's data-sheet
+    rate)."""
+    from repro_torch.models import transformer as T
+    torch, s = r.torch, r.sizes
+    cfg = r.config(ZAMBA2)
+    r.reset_peak()
+    model = T.init_params(cfg, 0, mesh=r.both)
+    gathered = sum(p.numel() * p.element_size()
+                   * (2 if p.fsdp_dim is not None else 1)
+                   for p in model.parameters())
+    got = zamba2_decode(r, cfg, model, r.both, s["long_len"])
+    peaks = r.peaks()
+    logits = got["logits"]
+    r.check(bool(torch.isfinite(logits).all()) and logits.shape == (
+        1, s["steps"], cfg.vocab_pad), f"{cfg.name}: logits of shape "
+        f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    walls = sorted(got["walls"])
+    bound = (gathered + got["cache_bytes"]) / PEAK_BYTES_PER_S * 1e3
+    res = {"decode_ms": [w * 1e3 for w in got["walls"]],
+           "decode_ms_median": walls[len(walls) // 2] * 1e3,
+           "decode_ms_min": walls[0] * 1e3,
+           "cache_bytes": got["cache_bytes"], "gathered_weight_bytes":
+           gathered, "bound_ms": bound, "peak_bytes_by_rank": peaks,
+           "calls_per_step": got["calls"][-1]}
+    r.log(f"{cfg.name} B=1 max_len={s['long_len']} on (data 2, model 2): "
+          f"caches {got['cache_bytes']} B ({got['cache_bytes'] / 1e9:.2f} "
+          f"GB) per rank, filled to position {s['long_len'] - s['steps']}; "
+          f"{s['steps']} decode steps: ms per step median "
+          f"{res['decode_ms_median']:.3f} (min {res['decode_ms_min']:.3f}) "
+          f"against the read bound {bound:.3f} ms (the rank's gathered "
+          f"weights {gathered} B + caches, {PEAK_BYTES_PER_S:.3g} B/s); "
+          f"peak per rank {[round(p / 2**30, 2) for p in peaks]} GiB; "
+          f"collectives per step {json.dumps(res['calls_per_step'])} "
+          f"[{r.card}]")
+    r.out["zamba2_long"] = res
 
 
 #: the modes in the order they run (``--modes`` picks some)
@@ -603,7 +918,10 @@ MODES = {"cut": phase_cut, "llama4": phase_llama4,
          "deepseek": phase_deepseek,
          "zamba2": lambda r: family_mode(r, ZAMBA2),
          "rwkv6": lambda r: family_mode(r, RWKV6),
-         "whisper": lambda r: family_mode(r, WHISPER)}
+         "whisper": lambda r: family_mode(r, WHISPER),
+         "gemma2_cut": phase_gemma2_cut, "gemma2_train": phase_gemma2_train,
+         "zamba2_cp_cut": phase_zamba2_cp_cut,
+         "zamba2_long": phase_zamba2_long}
 
 
 def run_rank(rank: int, store: str, dev: str, out: Path, modes) -> int:
