@@ -396,6 +396,26 @@ Phases:
     tensor over the data axis of one rank: its input back, timed, one
     ``mesh/reduce_scatter`` counted per call.
 
+59. (Run after phase 52.) ``repro_torch.analysis`` on the card: every
+    registry entry on CUDA tensors (``use_kernel=None``) — the padding
+    self-composition of the 17 padding entries, bit for bit, with
+    kernels 1 and 2 launched in both runs of each of the 12 that reach
+    them (lp_affinity, sep_affinity, pin_count_csr, pin_count on the
+    ELL, pin_affinity, kway_lp_round, the three refinement scans, the
+    parhyp rounds); the op trace of every entry (host reads per call,
+    each allowed one named, no float64; the SSD scan traced for hygiene
+    only); the replication check on a world of one; both lints: zero
+    findings.  A planted fault (lp_affinity with its padding weights
+    unmasked) is flagged ``padding-flows-into-output`` on the card.
+60. The dry run (``launch/dryrun.py``: shapes only, on the host) against
+    this run: phase 45's minicpm-2B step (B = 2 x 2048, f32, remat
+    "full", 2 microbatches) extrapolated from 1 and 2 layers — its
+    parameter and optimizer bytes exactly the live model's, its
+    predicted peak and FLOPs beside phase 45's ``max_memory_allocated``
+    and 8·N·T with their ratios — and gemma2-9B at 2 layers on a (1, 1)
+    stand-in, whose collectives per step equal phase 57's ``mesh/*``
+    counter deltas on the NCCL (1, 1) mesh.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
 """
@@ -2996,6 +3016,13 @@ def train_phases(torch, np, dev, card) -> dict:
         f"{[round(r[0], 4) for r in frun]}, then {after:.4f} [{card}]")
     check(after < frun[0][0], f"minicpm-2b: the loss on a fixed batch did "
           f"not fall ({frun[0][0]} -> {after})")
+    # what phase 60's dry run of this step is held to
+    train45 = {"peak_bytes": int(peak), "param_bytes": param_bytes(model),
+               "opt_bytes": sum(t.numel() * t.element_size() for t in
+                                (*opt["mu"].values(), *opt["nu"].values(),
+                                 opt["step"])),
+               "flops": flops, "flops_8nt": 8 * cfg.param_count() * b * s,
+               "step_s": med}
     del model, opt, step, fstep, fixed
     torch.cuda.empty_cache()
 
@@ -3107,48 +3134,11 @@ def train_phases(torch, np, dev, card) -> dict:
           <= 1, f"stages not contiguous or not balanced: {sizes}")
     check(launches > 0, "partition_layers never launched lp_affinity")
     lp_err = replay_lp(torch, calls, "partition_layers")
-    return {"partition_layers": launches, "errors": {"lp_affinity": lp_err}}
+    return {"partition_layers": launches, "errors": {"lp_affinity": lp_err},
+            "train45": train45}
 
 
-class RankStandIn:
-    """Rank 0's coordinates on a mesh of ``sizes`` over ``axes``: what
-    `shardings.tp_block` reads, without a process group (every rank's
-    blocks have one size)."""
-
-    def __init__(self, axes, sizes):
-        self.axis_names, self.shape = tuple(axes), tuple(sizes)
-
-    def extent(self, axis):
-        return self.shape[self.axis_names.index(axis)]
-
-    def axis_index(self, axis):
-        return 0
-
-
-def per_rank_bytes(np, model, cfg, axes, sizes) -> tuple:
-    """(bytes per rank under the reference's specs, bytes per rank of the
-    port's explicit layout) of ``model``'s f32 parameters on a mesh of
-    ``sizes`` over ``axes``: the specs split each dim over the product of
-    their axes' extents (rounded up, as GSPMD pads); the port holds the
-    blocks `shardings.rank_block` gives a rank (its ``model`` block, with
-    the departures the module docstring lists, and its FSDP shard of
-    that over the data axes)."""
-    from repro_torch.models import shardings as SH
-    ext = dict(zip(axes, sizes))
-    rank = RankStandIn(axes, sizes)
-    spec_b = port_b = 0
-    for name, p in model.named_parameters():
-        spec = SH.leaf_spec(name, p.dim(), axes)
-        split = [int(np.prod([ext[a] for a in
-                              (e if isinstance(e, tuple) else (e,))
-                              if a is not None])) for e in spec]
-        spec_b += 4 * int(np.prod([-(-dim // n)
-                                   for dim, n in zip(p.shape, split)]))
-        port_b += 4 * SH.rank_block(name, p, cfg, rank).numel()
-    return spec_b, port_b
-
-
-def mesh_phases(torch, np, dev, card) -> None:
+def mesh_phases(torch, np, dev, card) -> list:
     """Phases 49-51, 55-58: the collectives tensor parallelism adds,
     through an NCCL group of one; minicpm-2B and llama4-scout (2 layers),
     then zamba2, rwkv6, whisper and deepseek-v2 (2 layers), under a
@@ -3156,12 +3146,16 @@ def mesh_phases(torch, np, dev, card) -> None:
     trained and zamba2 decoded on the sequence-split path under it, bit
     for bit equal to no mesh, and its reduce-scatter; the per-rank bytes
     of the ten archs' specs and of the port's blocks on (1, 4) and
-    (2, 2), and of deepseek-v2 at the 4-card tool's depth."""
+    (2, 2), and of deepseek-v2 at the 4-card tool's depth.  Returns the
+    collectives of each of phase 57's steps under the mesh."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch import obs
     from repro_torch.configs.base import ARCH_IDS, get_config
     from repro_torch.core.mesh import ALL_GATHER, ALL_REDUCE, ALL_TO_ALL
+    from repro_torch.launch.dryrun import (FREE_BYTES, RankStandIn,
+                                           fitting_depth, rank_bytes,
+                                           spec_param_bytes)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
@@ -3269,39 +3263,36 @@ def mesh_phases(torch, np, dev, card) -> None:
             check(same_fwd and same_dec,
                   f"{cfg.name}: a (1, 1) mesh changed the logits")
             del model, runs, logits, caches
-        data_axis_phases(torch, np, dev, card, mesh, gen)
+        calls57 = data_axis_phases(torch, np, dev, card, mesh, gen)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     # -- 51, 56. the per-rank bytes of the specs and of the port's blocks ----
+    axes = ("data", "model")
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         SH.check_tp(cfg, 4)
         with FakeTensorMode():
-            model = T.init_params(cfg, 0, device="cpu")
-            total = 4 * sum(p.numel() for p in model.parameters())
-            rows = {}
-            for sizes in ((1, 4), (2, 2)):
-                rows[sizes] = per_rank_bytes(np, model, cfg,
-                                             ("data", "model"), sizes)
+            total = 4 * sum(p.numel() for p in
+                            T.init_params(cfg, 0, device="cpu").parameters())
+        rows = {sizes: (spec_param_bytes(cfg, axes, sizes),
+                        rank_bytes(cfg, cfg.n_layers, RankStandIn(axes, sizes),
+                                   fsdp=True))
+                for sizes in ((1, 4), (2, 2))}
         log(f"param_specs {cfg.name}: {total} B of f32 parameters; per rank "
             + "; ".join(f"(data {d}, model {m}): specs {sb} B "
                         f"({sb / 1e9:.2f} GB), the port's blocks {pb} B "
                         f"({pb / 1e9:.2f} GB)"
                         for (d, m), (sb, pb) in rows.items()))
-    sys.path.insert(0, str(ROOT / "tools"))
-    from serve_torch_sharded import FREE_BYTES, fitting_depth, rank_bytes
     cfg = get_config("deepseek_v2_236b")
     card_bytes = torch.cuda.get_device_properties(0).total_memory
-    rank = RankStandIn(("data", "model"), (1, 4))
+    rank = RankStandIn(axes, (1, 4))
     depth = fitting_depth(cfg, rank, card_bytes)
     nbytes = rank_bytes(cfg, depth, rank)
-    cut = dataclasses.replace(cfg, n_layers=depth)
-    with FakeTensorMode():
-        spec_b, port_b = per_rank_bytes(
-            np, T.init_params(cut, 0, device="cpu"), cut,
-            ("data", "model"), (1, 4))
+    spec_b = spec_param_bytes(dataclasses.replace(cfg, n_layers=depth), axes,
+                              (1, 4))
+    port_b = rank_bytes(cfg, depth, rank, fsdp=True)
     log(f"param_specs {cfg.name} at {depth} of 60 layers (the most that "
         f"leave {FREE_BYTES / 1e9:g} GB of this card's {card_bytes} B "
         f"free: tools/serve_torch_sharded.py's deepseek depth): per rank on "
@@ -3310,16 +3301,19 @@ def mesh_phases(torch, np, dev, card) -> None:
         f"[{card}]")
     check(port_b == nbytes and depth > 2,
           f"deepseek-v2's sizing: {depth} layers, {port_b} != {nbytes} B")
+    return calls57
 
 
-def data_axis_phases(torch, np, dev, card, mesh, gen) -> None:
+def data_axis_phases(torch, np, dev, card, mesh, gen) -> list:
     """Phases 57-58 on the NCCL (1, 1) ``mesh``: gemma2-9B (2 layers)
     trained on the FSDP + tensor-parallel path, zamba2 decoded on the
     sequence-split cache path, each bit for bit equal to no mesh; the
-    mesh's reduce-scatter."""
+    mesh's reduce-scatter.  Returns the ``mesh/*`` counter deltas of each
+    of phase 57's steps under the mesh."""
     from repro_torch import obs
     from repro_torch.configs.base import get_config
-    from repro_torch.core.mesh import REDUCE_SCATTER
+    from repro_torch.core.mesh import (ALL_GATHER, ALL_REDUCE, ALL_TO_ALL,
+                                       REDUCE_SCATTER)
     from repro_torch.models import shardings as SH
     from repro_torch.models import transformer as T
     from repro_torch.serve.serve_step import decode_step
@@ -3336,18 +3330,24 @@ def data_axis_phases(torch, np, dev, card, mesh, gen) -> None:
     toks = torch.randint(0, cfg.vocab, (3, 1, DATA_TRAIN_SEQ + 1),
                          generator=gen, device=dev)
     runs = {}
+    calls57 = []
     for name, m in (("none", None), ("mesh", mesh)):
         torch.cuda.empty_cache()
         model = T.init_params(cfg, seed=0, device=dev, mesh=m)
         opt = init_opt_state(model)
         step = make_train_step(cfg, OptConfig(), remat="full")
         walls, losses = [], []
+        kinds = (ALL_REDUCE, ALL_GATHER, REDUCE_SCATTER, ALL_TO_ALL)
         with under(m):
             for i in range(3):
+                before = {c: obs.metrics.get(c) for c in kinds}
                 (_, _, met), wall = timed(torch, lambda: step(
                     model, opt, {"tokens": toks[i]}))
                 walls.append(wall)
                 losses.append(float(met["loss"]))
+                if m is not None:
+                    calls57.append({c: int(obs.metrics.get(c) - before[c])
+                                    for c in kinds})
         del opt
         runs[name] = ({n: p.detach() for n, p in model.named_parameters()},
                       walls, losses)
@@ -3363,7 +3363,8 @@ def data_axis_phases(torch, np, dev, card, mesh, gen) -> None:
         f"{[round(w, 4) for w in runs['none'][1]]} s), "
         f"{flop / sorted(runs['mesh'][1])[1] / 1e12:.2f} TFLOP/s at the "
         f"median (8·N·T = {flop:.3e} FLOP), losses "
-        f"{[round(x, 5) for x in runs['mesh'][2]]} [{card}]")
+        f"{[round(x, 5) for x in runs['mesh'][2]]}; collectives per step "
+        f"{json.dumps(calls57)} [{card}]")
     check(same, f"{cfg.name}: a (1, 1) mesh changed the trained weights")
     del runs
 
@@ -3408,6 +3409,7 @@ def data_axis_phases(torch, np, dev, card, mesh, gen) -> None:
     log(f"NCCL (1, 1) mesh: reduce_scatter of a (4096, 5120) f32 tensor "
         f"over data keeps it; {rs_ms:.4f} ms [{card}]")
     torch.cuda.empty_cache()
+    return calls57
 
 
 def decoder_phases(torch, np, dev, card) -> dict:
@@ -3545,6 +3547,125 @@ def formats_phase(torch, np, g, part3, dev, card) -> tuple:
           "the recorder's spans are missing from the profiler's events")
     shutil.rmtree(work)
     return launches, err
+
+
+def padding_leak_entry():
+    """A planted fault for phase 59: ``ops.lp_affinity`` called with its
+    padding slots' weights set to 1 (the mask not applied), so the
+    garbage the perturbation aims there reaches real rows."""
+    from repro_torch.analysis import registry as REG
+    from repro_torch.kernels import ops
+    base = REG.default_registry()["kernels/lp_affinity"]
+
+    def build(device, mesh=None):
+        _, args = base.build(device)
+
+        def fn(nbr, wgt, labels):
+            return ops.lp_affinity(nbr, wgt + (wgt == 0).float(), labels, 4)
+        return fn, args
+
+    return REG.EntryPoint(name="fixture/unmasked_padding", build=build,
+                          tags=frozenset({"padding"}), padding=base.padding,
+                          kernels=base.kernels)
+
+
+def analysis_phase(torch, np, dev, card) -> dict:
+    """Phase 59: `repro_torch.analysis` on the card — every registry entry
+    on CUDA tensors (padding self-composition with the kernels launched,
+    the op trace's host syncs and wide dtypes, spmd on a world of one),
+    both lints, zero findings; a planted fault caught on the card."""
+    from repro_torch import analysis
+    from repro_torch.analysis import padding, registry as REG
+    reg = REG.default_registry()
+    traces = {}
+    t0 = time.perf_counter()
+    findings = analysis.analyze(device=dev, traces=traces)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = {}
+    for name, t in sorted(traces.items()):
+        sites = t.sync_sites()
+        syncs[name] = sites
+        allowed = sorted(loc for loc in sites
+                         if reg[name].allowed(loc) is not None)
+        launched = {k.split("/")[1]: int(v) for k, v in t.launches.items()}
+        log(f"analysis {name} on the card: {len(t.ops)} ops, host reads "
+            f"per call {json.dumps(sites)} (allowed: {allowed}), kernel "
+            f"launches {json.dumps(launched)}")
+    padded = sorted(n for n, e in reg.items() if "padding" in e.tags)
+    kernel_padded = sorted(n for n in padded if reg[n].kernels)
+    log(f"analysis on the card: {len(reg)} entries + lints in {wall:.3f} s, "
+        f"{len(findings)} findings; {len(padded)} padding entries "
+        f"bit-identical under garbage in their padding slots, "
+        f"{len(kernel_padded)} of them through kernels 1 and 2 "
+        f"({', '.join(kernel_padded)}), each kernel launched in both runs "
+        f"[{card}]")
+    for f in findings:
+        log(f"  finding [{f.severity}] {f.checker} {f.entry} {f.code} "
+            f"{f.location}: {f.message}")
+    check(not findings, f"analysis found {len(findings)} faults on the card")
+    check(len(kernel_padded) >= 12, f"only {kernel_padded} ran kernels")
+    leak = padding.check_padding(padding_leak_entry(), dev)
+    log(f"planted fault (lp_affinity with its padding weights unmasked) on "
+        f"the card: {[f.code for f in leak]}")
+    check([f.code for f in leak] == ["padding-flows-into-output"],
+          f"the unmasked padding was not caught on the card: {leak}")
+    return syncs
+
+
+def dryrun_phase(torch, np, dev, card, train45: dict, calls57: list) -> None:
+    """Phase 60: the dry run (`repro_torch.launch.dryrun`, shapes only,
+    on the host) against this run's own measurements: minicpm-2B's phase
+    45 step (parameter and optimizer bytes exactly; the peak and FLOPs
+    beside the measured peak and 8·N·T) and gemma2-9B at 2 layers on a
+    (1, 1) stand-in beside phase 57's counters on the NCCL (1, 1) mesh.
+    At extents of 1 the model path issues no tensor-parallel or FSDP
+    collective, so that agreement is of zeros: it shows only that neither
+    side counts a call the step does not make.  The counts at extents
+    above 1 are held by ``tests/test_torch_dryrun.py`` on 4 gloo ranks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm_2b")
+    b, s = TRAIN_FWD
+    shape = {"kind": "train", "global_batch": b, "seq_len": s}
+    got = D.extrapolated(cfg, shape, None, torch.float32, "full", TRAIN_MB)
+    predicted = sum(got[k] for k in ("params", "optimizer", "batch",
+                                     "activation_peak"))
+    measured = train45["peak_bytes"]
+    log(f"dry run of phase 45's step (minicpm-2B, B={b} S={s}, f32, remat "
+        f"full, {TRAIN_MB} microbatches, from 1- and 2-layer variants): "
+        f"parameters {got['params']} B (live model "
+        f"{train45['param_bytes']} B), optimizer {got['optimizer']} B "
+        f"(live {train45['opt_bytes']} B), batch {got['batch']} B, "
+        f"activation peak {got['activation_peak']} B; predicted peak "
+        f"{predicted} B vs measured max_memory_allocated {measured} B "
+        f"(ratio {predicted / measured:.4f}); FLOPs per step "
+        f"{got['flops']:.6g} vs 8·N·T {train45['flops_8nt']:.6g} (ratio "
+        f"{got['flops'] / train45['flops_8nt']:.4f}) and phase 45's "
+        f"train_flops {train45['flops']:.6g} (ratio "
+        f"{got['flops'] / train45['flops']:.4f}); at the measured "
+        f"{train45['step_s']:.4f} s per step the counted FLOPs run at "
+        f"{got['flops'] / train45['step_s'] / 1e12:.2f} TFLOP/s [{card}]")
+    check(got["params"] == train45["param_bytes"]
+          and got["optimizer"] == train45["opt_bytes"],
+          "the dry run's parameter or optimizer bytes differ from the live "
+          "model's")
+    gcfg = dataclasses.replace(get_config("gemma2_9b"), n_layers=2)
+    rank = D.RankStandIn(("data", "model"), (1, 1))
+    g = D.step_costs(gcfg, {"kind": "train", "global_batch": 1,
+                            "seq_len": DATA_TRAIN_SEQ}, rank, torch.float32)
+    calls = g["collectives"]["calls"]
+    want = {k: calls[k] for k in calls57[0]}
+    log(f"dry run of phase 57's step (gemma2-9B 2 layers, 1 x "
+        f"{DATA_TRAIN_SEQ}, remat full) on a (1, 1) stand-in: collectives "
+        f"{json.dumps(want)}; phase 57's steps on the NCCL (1, 1) mesh "
+        f"counted {json.dumps(calls57)} (extents of 1: no spurious call on "
+        f"either side, not a check of the counts at extents above 1); "
+        f"{time.perf_counter() - t0:.3f} s for both dry runs [{card}]")
+    check(all(c == want for c in calls57),
+          "the dry run or phase 57 counted a collective the (1, 1) step "
+          "does not make")
 
 
 def main() -> int:
@@ -3699,8 +3820,10 @@ def main() -> int:
                                 ep_replication)
     dec = decoder_phases(torch, np, dev, card)
     trn = train_phases(torch, np, dev, card)
-    mesh_phases(torch, np, dev, card)
+    calls57 = mesh_phases(torch, np, dev, card)
     rec_launches, rec_err = formats_phase(torch, np, g, part, dev, card)
+    analysis_phase(torch, np, dev, card)
+    dryrun_phase(torch, np, dev, card, trn["train45"], calls57)
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity

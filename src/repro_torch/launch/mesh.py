@@ -14,11 +14,18 @@ from typing import Sequence
 from repro_torch.core.mesh import Mesh
 
 
+def production_layout(*, multi_pod: bool = False):
+    """(shape, axes) of the reference's production layouts: (data 16,
+    model 16), or (pod 2, data 16, model 16) with ``multi_pod``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """The reference's production layouts: (data 16, model 16), or (pod 2,
-    data 16, model 16) with ``multi_pod``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The reference's production layouts (`production_layout`) over the
+    default process group."""
+    shape, axes = production_layout(multi_pod=multi_pod)
     return make_mesh(shape, axes, device=device)
 
 

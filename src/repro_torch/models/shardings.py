@@ -623,8 +623,10 @@ def counted_once(path: str, t: torch.Tensor, cfg, mesh):
     """What of the rank's block ``t`` of ``path`` this rank counts in a
     sum over the whole mesh that counts each element of the leaf once:
     True (all of it), False (none: another rank holds the same numbers)
-    or a bool mask over the last dim (Mamba2's B/C columns, counted on
-    model rank 0)."""
+    or the indices of the counted columns of the last dim (Mamba2's B/C
+    columns are counted on model rank 0): an int64 tensor made by
+    ``arange`` on ``t``'s device, so selecting them reads nothing back
+    to the host, as a boolean mask's ``nonzero`` would."""
     if mesh is None:
         return True
     if fsdp_dim(path, t.dim(), mesh) is None and any(
@@ -637,10 +639,13 @@ def counted_once(path: str, t: torch.Tensor, cfg, mesh):
     parent, name = _names(path)
     seg = _mamba_segments(name, cfg) if parent == "mamba" else None
     if seg is not None:
-        mask = torch.cat([torch.full((size // m if cut else size,),
-                                     cut or j == 0, dtype=torch.bool)
-                          for size, cut in zip(*seg)])
-        return mask.to(t.device)
+        cols, off = [], 0
+        for size, cut in zip(*seg):
+            local = size // m if cut else size
+            if cut or j == 0:
+                cols.append(torch.arange(off, off + local, device=t.device))
+            off += local
+        return torch.cat(cols)
     if _kv_fallback(parent, name, cfg, m):
         return j % (m // cfg.n_kv_heads) == 0
     return bool(_model_dims(path, t.dim())) or j == 0

@@ -56,6 +56,11 @@ from repro_torch.serve.serve_step import (decode_step, greedy_token,
 #: Cache leaves not indexed by position: a reused slot zeroes them.
 UNPOSITIONED = ("ssm", "conv", "prev", "wkv", "prev_cm")
 
+#: The designed host sync points (``analysis/lint.check_host_sync``): the
+#: first token a prefill samples (``add``) and each decode step's tokens
+#: (``step``) feed the Python-side slot state.
+_HOST_SYNC_OK = ("add", "step")
+
 
 def _map_leaves(fn, tree):
     if isinstance(tree, dict):

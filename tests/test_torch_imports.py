@@ -56,7 +56,12 @@ def test_no_jax_or_reference_imports_in_source():
                 ("train", "fault.py"), ("train", "pipeline.py"),
                 ("models", "shardings.py"), ("launch", "mesh.py"),
                 ("launch", "ranks.py"), ("obs", "trace.py"),
-                ("obs", "live.py"), ("io", "binio.py")):
+                ("obs", "live.py"), ("io", "binio.py"),
+                ("analysis", "__init__.py"), ("analysis", "__main__.py"),
+                ("analysis", "checkers.py"), ("analysis", "findings.py"),
+                ("analysis", "lint.py"), ("analysis", "padding.py"),
+                ("analysis", "registry.py"), ("analysis", "spmd.py"),
+                ("analysis", "tracing.py"), ("launch", "dryrun.py")):
         assert PORT.joinpath(*new) in files, new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -174,6 +179,37 @@ def test_port_runs_with_jax_and_reference_blocked():
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_analysis_and_dry_run_run_with_jax_and_reference_blocked(tmp_path):
+    """``python -m repro_torch.analysis --device cpu`` (the tiny driver
+    runs, every registry entry, both lints) exits 0 with zero findings,
+    and a dry-run cell is written, with jax and `repro` blocked."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None        # any import of them now fails
+        sys.modules["repro"] = None
+        import runpy
+        sys.argv = ["repro_torch.analysis", "--device", "cpu", "--out",
+                    {str(tmp_path / "findings.jsonl")!r}]
+        try:
+            runpy.run_module("repro_torch.analysis", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell("minicpm_2b", "decode_32k", "1x4",
+                              {str(tmp_path)!r}, dtypes=("f32",))
+        assert not rec["errors"] and rec["bytes"]["f32"]["caches"] > 0
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k in sys.modules if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "0 findings" in out.stdout and out.stdout.rstrip().endswith("ok")
+    assert (tmp_path / "minicpm_2b__decode_32k__1x4.json").exists()
 
 
 def test_torch_distributed_is_imported_only_where_a_group_is_used():

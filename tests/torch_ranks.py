@@ -1147,6 +1147,122 @@ def rank_data(rank: int, world: int, inp: dict, dev: str) -> dict:
     return out
 
 
+# -- the analysis' replication check and the dry run's collective counts ------
+
+#: registry entries whose replication claim the 4 ranks check
+SPMD_ENTRIES = ("dist/parhip_round", "dist/parhyp_round",
+                "dist/parhyp_round_2d", "dist/cluster_round",
+                "dist/contract", "memetic/migrate_ring")
+#: (arch, mesh, what) runs whose collectives the dry run's stand-in counts:
+#: one forward of B = 2, L = 16 tokens, or one train step on that batch
+COUNT_RUNS = (("minicpm_2b", (1, 4), "fwd"),
+              ("llama4_scout_17b_a16e", (2, 2), "fwd"),
+              ("zamba2_2p7b", (1, 4), "fwd"),
+              ("deepseek_v2_236b", (1, 4), "fwd"),
+              ("gemma2_9b", (2, 2), "train"))
+COUNT_B, COUNT_L = 2, 16
+
+
+def phi_entry(reduce_phi: bool):
+    """A miniature parhyp Φ round as a registry entry: each rank counts
+    its shard's pins per (net, block) and, with ``reduce_phi``, psums the
+    partials over ``nets``; the histogram is claimed replicated."""
+    import torch
+    from repro_torch.analysis.registry import EntryPoint
+    from repro_torch.core.mesh import Mesh
+
+    def build(device, mesh=None):
+        mesh = mesh if mesh is not None else Mesh.local(("nets",), device)
+        me = mesh.axis_index("nets")
+        pe = torch.arange(8, device=mesh.device) % 4
+        pv = (torch.arange(8, device=mesh.device) + me) % 16
+        labels = torch.arange(16, device=mesh.device) % 2
+
+        def fn(pe, pv, labels):
+            cnt = torch.zeros(4 * 2, device=mesh.device).index_add_(
+                0, pe * 2 + labels[pv], torch.ones(8, device=mesh.device))
+            if reduce_phi:
+                cnt = mesh.psum(cnt, "nets")
+            return cnt.view(4, 2)
+        return fn, (pe, pv, labels)
+
+    return EntryPoint(name=f"fixture/phi_{reduce_phi}", build=build,
+                      tags=frozenset({"spmd"}), mesh_axes=("nets",),
+                      replicated=lambda out: {"phi": out})
+
+
+def count_inputs(torch, cfg, rows: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(26)
+    return torch.randint(0, cfg.vocab, (rows, COUNT_L + 1), generator=gen,
+                         device=dev)
+
+
+def count_run(torch, cfg, model, what: str, toks):
+    """The run of a `COUNT_RUNS` entry on ``model`` under the current
+    mesh."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    if what == "fwd":
+        with torch.no_grad():
+            T.forward(model, cfg, toks[:, :-1])
+        return
+    make_train_step(cfg, OptConfig(), remat="full")(
+        model, init_opt_state(model), {"tokens": toks})
+
+
+def rank_spmd(rank: int, world: int, inp: dict, dev: str) -> dict:
+    """`analysis.spmd.check_spmd` of every `SPMD_ENTRIES` entry on its
+    mesh of the 4 ranks, and of `phi_entry` with and without its psum:
+    the finding codes and the axes they name."""
+    from repro_torch.analysis import registry as REG
+    from repro_torch.analysis import spmd
+    from repro_torch.core.mesh import Mesh
+    meshes = {("nodes",): Mesh.world(("nodes",), device=dev),
+              ("nets",): Mesh.world(("nets",), device=dev),
+              ("islands",): Mesh.world(("islands",), device=dev),
+              ("nets", "verts"): Mesh.world(("nets", "verts"), (2, 2),
+                                            device=dev)}
+    reg = REG.default_registry()
+    out = {}
+    entries = [reg[n] for n in SPMD_ENTRIES] + [phi_entry(True),
+                                                 phi_entry(False)]
+    for e in entries:
+        found = spmd.check_spmd(e, meshes[e.mesh_axes])
+        out[f"spmd/{e.name}"] = np.asarray([f.code for f in found], str)
+        out[f"axes/{e.name}"] = np.asarray(
+            [a for f in found for a in f.detail["varying"]], str)
+    return out
+
+
+def rank_counts(rank: int, world: int, inp: dict, dev: str) -> dict:
+    """The mesh/* calls (all-reduce, all-gather, reduce-scatter,
+    all-to-all) of each `COUNT_RUNS` run on this rank."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.mesh import (ALL_GATHER, ALL_REDUCE, ALL_TO_ALL,
+                                       REDUCE_SCATTER, Mesh)
+    from repro_torch.launch.dryrun import rank_rows
+    from repro_torch.models import shardings as SH
+    from repro_torch.models import transformer as T
+    kinds = (ALL_REDUCE, ALL_GATHER, REDUCE_SCATTER, ALL_TO_ALL)
+    out = {}
+    for arch, shape, what in COUNT_RUNS:
+        cfg = get_config(arch).reduced()
+        mesh = Mesh.world(("data", "model"), shape, device=dev)
+        model = T.init_params(cfg, 0, mesh=mesh)
+        rows = rank_rows(mesh, COUNT_B)
+        toks = count_inputs(torch, cfg, COUNT_B, dev)
+        toks = toks[rows * mesh.axis_index("data"):][:rows]
+        with SH.use_mesh(mesh):
+            before = {k: obs.metrics.get(k) for k in kinds}
+            count_run(torch, cfg, model, what, toks)
+            out[f"calls/{arch}/{what}"] = np.asarray(
+                [obs.metrics.get(k) - before[k] for k in kinds])
+    return out
+
+
 # -- the port on 4 cards against its 4 CPU ranks --------------------------------
 
 JOBS = ("rank_parhip", "rank_parhyp", "rank_memetic", "rank_stack",

@@ -40,8 +40,8 @@ below), each model freed before the next:
           as ``cut`` (B = 1, L = 2048).
 ``deepseek`` deepseek-v2 at full width (MLA with 128 heads, 160 experts of
           1536, top-6, 2 shared) on (1, 4), as many of its 60 layers as
-          leave 15 GB of each card free (`fitting_depth`: the per-rank
-          bytes of 1 and 2 layers under ``FakeTensorMode``): as
+          leave 15 GB of each card free (`launch.dryrun.fitting_depth`:
+          the per-rank bytes of 1 and 2 layers under ``FakeTensorMode``): as
           ``llama4`` (the placement of 160 experts onto the 4 ranks runs
           kernel 1, its launches counted), the forward at B = 1, L = 2048.
 ``zamba2``, ``rwkv6``, ``whisper`` each model whole at full width on
@@ -121,7 +121,6 @@ SIZES = {
                 long_len=128, cut_len=64, fill_chunk=16),
 }
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-FREE_BYTES = 15e9              # what deepseek's depth leaves free per card
 SSD_TOL = 3e-4                 # tests/test_kernels.py's abs + rel
 
 
@@ -425,30 +424,8 @@ def phase_llama4(r: Rank) -> None:
     r.out["llama4"] = res
 
 
-def rank_bytes(cfg, n: int, mesh) -> int:
-    """The f32 bytes of the blocks `shardings.tp_block` gives a rank of
-    ``mesh`` (anything with its ``axis_names``, ``extent`` and
-    ``axis_index``) of ``cfg`` cut to ``n`` layers: shapes only, under
-    ``FakeTensorMode``."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from repro_torch.models import shardings as SH
-    from repro_torch.models import transformer as T
-    cut = dataclasses.replace(cfg, n_layers=n)
-    with FakeTensorMode():
-        model = T.init_params(cut, 0, device="cpu")
-        return 4 * sum(SH.tp_block(name, p, cut, mesh).numel()
-                       for name, p in model.named_parameters())
-
-
-def fitting_depth(cfg, mesh, total: int, free: float = FREE_BYTES) -> int:
-    """The most of ``cfg``'s layers whose per-rank f32 parameters leave
-    ``free`` bytes of a card of ``total`` free (`rank_bytes` of 1 and 2
-    layers: every layer holds the same blocks)."""
-    one, two = rank_bytes(cfg, 1, mesh), rank_bytes(cfg, 2, mesh)
-    return min(cfg.n_layers, int((total - free - one) // (two - one)) + 1)
-
-
 def phase_deepseek(r: Rank) -> None:
+    from repro_torch.launch.dryrun import fitting_depth, rank_bytes
     from repro_torch.models import transformer as T
     s = r.sizes
     total = (r.torch.cuda.get_device_properties(r.dev).total_memory
