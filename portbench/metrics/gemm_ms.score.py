@@ -1,0 +1,11 @@
+"""gemm_ms.score: the device time of the matrix-product kernels (names with
+gemm, cutlass or xmma) per traced forward, in milliseconds."""
+from portbench import trace
+
+
+def read(r):
+    if r.loop != "score" or not r.trace or not r.iters:
+        return None
+    s = sum(v for k, v in r.trace["device_s_by_name"].items()
+            if trace.is_matmul(k))
+    return 1e3 * s / r.iters if s > 0 else None

@@ -1,0 +1,14 @@
+"""mfu.train: the model FLOPs of the traced steps
+(`counts.train_step_flops`: 3x the forward, recomputation not counted)
+over the traced window, as a percentage of the card's float32 peak
+(`peaks.json`; the harness runs float32 only, TF32 off)."""
+from portbench import counts
+
+
+def read(r):
+    if r.loop != "train" or not r.trace or r.peak is None:
+        return None
+    t = r.traffic
+    flops = counts.train_step_flops(r.config, t["global_batch"],
+                                    t["seq_len"]) * r.iters
+    return 100.0 * flops / r.trace["window_s"] / r.peak["f32_flops_per_s"]

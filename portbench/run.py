@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Run one cell of the port's benchmark on the GPUs of this machine.
+
+    python portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+Run from the root of a checkout.  Prints, as the last line of standard
+output, one JSON object: ``correct``, ``attempted``, ``failed``,
+``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
+per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and last
+``checks``, each number ``correct`` compared beside its limit (also the
+last lines of standard error).  Exits non-zero with no result line
+without enough CUDA devices, and if JAX or the JAX package was loaded.
+"""
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+def caches_inside(root: Path) -> None:
+    """Every build and kernel cache at a fixed path inside the checkout (the
+    port's nvcc builds are under build/kernels/ there already)."""
+    base = root / "build" / "portbench"
+    os.environ["TORCH_EXTENSIONS_DIR"] = str(base / "torch_extensions")
+    os.environ["TRITON_CACHE_DIR"] = str(base / "triton")
+
+
+def loaded_forbidden() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args()
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    caches_inside(ROOT)
+    from portbench import spec
+    cell = spec.resolve(args.workload)
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"error: {args.workload} needs {cell.chips} CUDA device(s); "
+              f"this machine has "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 2
+    from portbench import harness
+    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                              "cuda:0", T_START)
+    found = loaded_forbidden()
+    if found:
+        print(f"error: these modules were loaded: {found}", file=sys.stderr)
+        return 3
+    sys.stdout.flush()
+    print("\n".join(harness.check_lines(result)), file=sys.stderr, flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
