@@ -329,7 +329,7 @@ Phases:
     ``graph2binary_external`` (byte-identical files, each converter
     timed), ``read_binary`` giving back ``xadj`` and ``adjncy``;
     ``interface.kaffpa`` ECO k=16 seed 1 in turns with no recorder, with
-    ``report=`` a ``Recorder(annotate_xprof=True)`` (lp_affinity's
+    ``report=`` a ``Recorder`` (lp_affinity's
     launches counted from 0, > 0 and equal to the recorder's count,
     every distinct shape held against its plain version), with one
     again, and with none: the same partition as each other and as phase
@@ -338,7 +338,8 @@ Phases:
     ``read_jsonl`` keep every event; the Chrome trace's B/E events
     balance on every tid; inside a short torch.profiler window (kaffpa
     on grid2d(64, 64)) the profiler's events carry the recorder's span
-    names (``multilevel``, ``refine``).
+    names (``multilevel``, ``refine``) as host operations, none of them
+    a user annotation or a device event.
 53. (Run inside phase 39's section, on deepseek-v2's 2-layer weights.)
     Phase 14's stream through ``serve_stream`` with
     ``ServeTelemetry(recorder=, traffic=)`` and the gate tap
@@ -3490,14 +3491,14 @@ def formats_phase(torch, np, g, part3, dev, card) -> tuple:
     with capturing(torch, lp_affinity, "affinity_cuda") as calls:
         torch.cuda.synchronize()
         obs.metrics.reset(LAUNCHES)
-        rec = obs.Recorder("kaffpa_recorded", annotate_xprof=True)
+        rec = obs.Recorder("kaffpa_recorded")
         (cut, part), wall = run(rec)
         launches = int(obs.metrics.get(LAUNCHES))
         ctr = rec.counters()
-    (_, part1), wall1 = run(obs.Recorder("again", annotate_xprof=True))
+    (_, part1), wall1 = run(obs.Recorder("again"))
     (_, part2), wall2 = run(None)
     log(f"kaffpa ECO k=16 on the 1M grid, in turns: wall_s without a "
-        f"recorder {wall0:.3f}, under Recorder(annotate_xprof=True) "
+        f"recorder {wall0:.3f}, under a Recorder "
         f"{wall:.3f}, again {wall1:.3f}, without {wall2:.3f}; cut={cut}; "
         f"lp_affinity launches={launches} (the recorder's count "
         f"{int(ctr.get(LAUNCHES, 0))}), events {len(rec.events)}, kernel "
@@ -3530,7 +3531,7 @@ def formats_phase(torch, np, g, part3, dev, card) -> tuple:
     check(set(depth.values()) == {0}, f"open spans per tid {depth}")
     # a short profiler window: the spans appear by name beside the kernels
     small = grid2d(64, 64)
-    prec = obs.Recorder("kaffpa_profiled", annotate_xprof=True)
+    prec = obs.Recorder("kaffpa_profiled")
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -3539,12 +3540,19 @@ def formats_phase(torch, np, g, part3, dev, card) -> tuple:
                          device=dev)
         torch.cuda.synchronize()
     names = {e.name for e in prof.events()}
+    spans = {e["name"] for e in prec.events if e["ph"] == "B"}
+    annotated = {e.name for e in prof.events() if e.name in spans and (
+        e.is_user_annotation
+        or e.device_type != torch.autograd.DeviceType.CPU)}
     log(f"journal: {n_lines} lines read back; Chrome trace spans balance on "
         f"{len(depth)} tids; torch.profiler window (kaffpa on grid2d(64,64)):"
         f" {len(names)} event names, the recorder's spans among them: "
-        f"{sorted(names & {'multilevel', 'refine', 'hierarchy', 'uncoarsen'})}")
+        f"{sorted(names & {'multilevel', 'refine', 'hierarchy', 'uncoarsen'})}"
+        f", as annotations or device events: {sorted(annotated)}")
     check({"multilevel", "refine"} <= names,
           "the recorder's spans are missing from the profiler's events")
+    check(not annotated, f"spans {sorted(annotated)} reached the profiler "
+          f"as annotations or device events")
     shutil.rmtree(work)
     return launches, err
 

@@ -56,6 +56,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.mesh import device_of
 from repro_torch.models import attention as A
@@ -401,13 +402,15 @@ def _caches(cfg, batch, max_len, dtype, dev, enc_len, kv_heads, m, split):
 def _mamba_layer(blk, x, cfg, state, engine):
     """x + mixer(rmsnorm(x, ln1)); a state (one layer's ``ssm``/``conv``)
     takes one token and is updated in place."""
-    blk = SH.gathered(blk)
-    y, new_st = M2.mamba2_mixer(blk.mamba, rmsnorm(x, blk.ln1, cfg.norm_eps),
-                                cfg, state=state, engine=engine)
-    if new_st is not None:
-        state["ssm"].copy_(new_st["ssm"])
-        state["conv"].copy_(new_st["conv"])
-    return x + y
+    with obs.current().span("model/mamba_layer"):
+        blk = SH.gathered(blk)
+        y, new_st = M2.mamba2_mixer(blk.mamba,
+                                    rmsnorm(x, blk.ln1, cfg.norm_eps), cfg,
+                                    state=state, engine=engine)
+        if new_st is not None:
+            state["ssm"].copy_(new_st["ssm"])
+            state["conv"].copy_(new_st["conv"])
+        return x + y
 
 
 def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
@@ -425,12 +428,13 @@ def _run_hybrid(model: HybridLM, cfg, x, positions, caches, cache_pos,
                 engine=engine), x, remat)
         kv = None if caches is None else {"k": caches["attn"]["k"][g],
                                           "v": caches["attn"]["v"][g]}
-        sh = SH.gathered(model.shared)
-        a, _ = A.attention(sh.attn, rmsnorm(x, sh.ln1, cfg.norm_eps), cfg,
-                           positions, cache=kv, cache_pos=cache_pos,
-                           seq_split=seq_split)
-        x = x + a
-        x = x + _mlp(sh.mlp, rmsnorm(x, sh.ln2, cfg.norm_eps), cfg)
+        with obs.current().span("model/shared_block"):
+            sh = SH.gathered(model.shared)
+            a, _ = A.attention(sh.attn, rmsnorm(x, sh.ln1, cfg.norm_eps),
+                               cfg, positions, cache=kv, cache_pos=cache_pos,
+                               seq_split=seq_split)
+            x = x + a
+            x = x + _mlp(sh.mlp, rmsnorm(x, sh.ln2, cfg.norm_eps), cfg)
     return x
 
 
@@ -447,65 +451,67 @@ def _rwkv_block(p, x, cfg, cache):
     """x + time mix, then + channel mix, each on its pre-norm; a cache
     (one layer's ``prev``/``wkv``/``prev_cm``) takes one token and is
     updated in place."""
-    p = SH.gathered(p)
-    st = None if cache is None else {"prev": cache["prev"],
-                                     "wkv": cache["wkv"]}
-    t, new_t = R6.rwkv6_time_mix(p.tmix, rmsnorm(x, p.ln1, cfg.norm_eps),
-                                 cfg, st)
-    x = x + t
-    c, new_cm = R6.rwkv6_channel_mix(
-        p.cmix, rmsnorm(x, p.ln2, cfg.norm_eps),
-        None if cache is None else cache["prev_cm"])
-    if cache is not None:
-        cache["prev"].copy_(new_t["prev"])
-        cache["wkv"].copy_(new_t["wkv"])
-        cache["prev_cm"].copy_(new_cm)
-    return x + c
+    with obs.current().span("model/rwkv_block"):
+        p = SH.gathered(p)
+        st = None if cache is None else {"prev": cache["prev"],
+                                         "wkv": cache["wkv"]}
+        t, new_t = R6.rwkv6_time_mix(p.tmix, rmsnorm(x, p.ln1, cfg.norm_eps),
+                                     cfg, st)
+        x = x + t
+        c, new_cm = R6.rwkv6_channel_mix(
+            p.cmix, rmsnorm(x, p.ln2, cfg.norm_eps),
+            None if cache is None else cache["prev_cm"])
+        if cache is not None:
+            cache["prev"].copy_(new_t["prev"])
+            cache["wkv"].copy_(new_t["wkv"])
+            cache["prev_cm"].copy_(new_cm)
+        return x + c
 
 
 def _dense_block(p, x, cfg, positions, window, cache, cache_pos,
                  enc_out=None, seq_split=False):
-    p = SH.gathered(p)
-    h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    if cfg.is_mla:
-        a, _ = MLA.mla_attention(p.attn, h, cfg, positions, cache=cache,
-                                 cache_pos=cache_pos, seq_split=seq_split)
-    else:
-        a, _ = A.attention(p.attn, h, cfg, positions, window=window,
-                           cache=cache, cache_pos=cache_pos,
-                           seq_split=seq_split)
-    if cfg.local_global_alternate:
-        a = rmsnorm(a, p.post1, cfg.norm_eps)
-    x = x + a
-    if enc_out is not None or (cache is not None and "xk" in cache):
-        # cross-attention: K/V from the encoder's output (written to the
-        # cache when there is one), else from the cache
-        if enc_out is not None:
-            kv = A.init_cross_kv(p.xattn, enc_out, cfg)
-            if cache is not None:
-                n = cache["xk"].shape[1]
-                lo = (SH.current_mesh().axis_index("data") * n if seq_split
-                      else 0)
-                cache["xk"].copy_(kv[0][:, lo:lo + n])
-                cache["xv"].copy_(kv[1][:, lo:lo + n])
+    with obs.current().span("model/dense_block"):
+        p = SH.gathered(p)
+        h = rmsnorm(x, p.ln1, cfg.norm_eps)
+        if cfg.is_mla:
+            a, _ = MLA.mla_attention(p.attn, h, cfg, positions, cache=cache,
+                                     cache_pos=cache_pos, seq_split=seq_split)
         else:
-            kv = (cache["xk"], cache["xv"])
-        cx, _ = A.attention(p.xattn, rmsnorm(x, p.ln_x, cfg.norm_eps), cfg,
-                            positions, kv_override=kv,
-                            seq_split=seq_split and enc_out is None)
-        x = x + cx
-    h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
-    if cfg.is_moe:
-        # per-row cursors: each row dispatches alone, as each slot does in
-        # the reference's per-slot decode
-        f = MOE.moe_ffn_a2a(p.moe, h2, cfg,
-                            per_row=torch.is_tensor(cache_pos),
-                            whole_batch=seq_split)
-    else:
-        f = _mlp(p.mlp, h2, cfg)
-    if cfg.local_global_alternate:
-        f = rmsnorm(f, p.post2, cfg.norm_eps)
-    return x + f
+            a, _ = A.attention(p.attn, h, cfg, positions, window=window,
+                               cache=cache, cache_pos=cache_pos,
+                               seq_split=seq_split)
+        if cfg.local_global_alternate:
+            a = rmsnorm(a, p.post1, cfg.norm_eps)
+        x = x + a
+        if enc_out is not None or (cache is not None and "xk" in cache):
+            # cross-attention: K/V from the encoder's output (written to the
+            # cache when there is one), else from the cache
+            if enc_out is not None:
+                kv = A.init_cross_kv(p.xattn, enc_out, cfg)
+                if cache is not None:
+                    n = cache["xk"].shape[1]
+                    lo = (SH.current_mesh().axis_index("data") * n if seq_split
+                          else 0)
+                    cache["xk"].copy_(kv[0][:, lo:lo + n])
+                    cache["xv"].copy_(kv[1][:, lo:lo + n])
+            else:
+                kv = (cache["xk"], cache["xv"])
+            cx, _ = A.attention(p.xattn, rmsnorm(x, p.ln_x, cfg.norm_eps), cfg,
+                                positions, kv_override=kv,
+                                seq_split=seq_split and enc_out is None)
+            x = x + cx
+        h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
+        if cfg.is_moe:
+            # per-row cursors: each row dispatches alone, as each slot does in
+            # the reference's per-slot decode
+            f = MOE.moe_ffn_a2a(p.moe, h2, cfg,
+                                per_row=torch.is_tensor(cache_pos),
+                                whole_batch=seq_split)
+        else:
+            f = _mlp(p.mlp, h2, cfg)
+        if cfg.local_global_alternate:
+            f = rmsnorm(f, p.post2, cfg.norm_eps)
+        return x + f
 
 
 def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
@@ -525,11 +531,12 @@ def _run_decoder(model: DecoderLM, cfg, x, positions, caches, cache_pos,
 
 
 def _enc_block(p, x, cfg, pos):
-    p = SH.gathered(p)
-    a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
-                       is_causal=False)
-    x = x + a
-    return x + _mlp(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+    with obs.current().span("model/encoder_block"):
+        p = SH.gathered(p)
+        a, _ = A.attention(p.attn, rmsnorm(x, p.ln1, cfg.norm_eps), cfg, pos,
+                           is_causal=False)
+        x = x + a
+        return x + _mlp(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
 
 def _run_encoder(model: DecoderLM, cfg, frames, remat: str = "none"):
@@ -568,62 +575,72 @@ def forward(model: LM, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     current mesh must be the one whose blocks the model holds (its
     ``model`` and data extents).  With `shardings.SeqSplitCaches` every
     data rank passes the whole batch and gets the whole logits.
+
+    Spans (`obs`): ``model/forward`` holds one span per block
+    (``model/mamba_layer``, ``model/shared_block``, ``model/dense_block``,
+    ``model/rwkv_block``, ``model/encoder_block``; a block that ``remat``
+    recomputes is recorded again in the backward) and ``model/head``.
     """
-    _require_ported(cfg)
-    grads = (torch.is_grad_enabled()
-             and any(p.requires_grad for p in model.parameters()))
-    if caches is not None and grads:
-        raise RuntimeError("forward with caches while grad mode is on and "
-                           "parameters require grad: training passes no "
-                           "caches, serving runs under torch.no_grad()")
-    mesh = SH.current_mesh()
-    m, dsz = SH.model_extent(mesh), SH.data_extent(mesh)
-    if m != model.tp or dsz != model.fsdp:
-        raise ValueError(f"the model holds blocks for model={model.tp}, "
-                         f"data={model.fsdp}; the current mesh has "
-                         f"model={m}, data={dsz}")
-    if m > 1:
-        SH.check_tp(cfg, m)
-    seq_split = isinstance(caches, SH.SeqSplitCaches)
-    if seq_split and (mesh is None or "data" not in mesh.axis_names):
-        raise ValueError("sequence-split caches need a mesh with a 'data' "
-                         "axis")
-    tokens = torch.as_tensor(tokens, device=model.embed.device)
-    embed = SH.fsdp_gather(model.embed)
-    x = _embed(embed, tokens, m) * math.sqrt(cfg.d_model)
-    if prefix_embeds is not None:
-        x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
-                       .to(x.dtype), x], 1)
-    x = SH.constrain_residual(x)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None]
-    if torch.is_tensor(cache_pos):
-        positions = cache_pos.reshape(-1, 1) + positions
-    elif cache_pos is not None:
-        positions = positions + int(cache_pos)
-    positions = positions.expand(b, s)
-    enc_out = None
-    if cfg.enc_layers and enc_frames is not None:
-        frames = torch.as_tensor(enc_frames, device=x.device).to(x.dtype)
-        n_x = None if caches is None else caches["xk"].shape[2] * (
-            mesh.extent("data") if seq_split else 1)
-        if caches is not None and n_x != frames.shape[1]:
-            raise ValueError(
-                f"{frames.shape[1]} encoder frames for a cross-attention "
-                f"cache of {n_x}: pass enc_len= to init_caches")
-        enc_out = _run_encoder(model, cfg, frames, remat)
-    if cfg.family == "hybrid":
-        x = _run_hybrid(model, cfg, x, positions, caches, cache_pos, engine,
-                        remat, seq_split)
-    else:
-        x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
-                         enc_out, remat, seq_split)
-    x = rmsnorm(SH.constrain_residual(x), model.final_gamma, cfg.norm_eps)
-    # the tied embedding: one gather, its gradient from both uses summed
-    # before the reduce-scatter
-    head = embed.T if cfg.tie_embeddings else SH.fsdp_gather(model.lm_head)
-    logits = SH.constrain_logits(SH.tp_gather(SH.tp_enter(x) @ head, -1))
-    return softcap(logits.float(), cfg.final_logit_softcap), caches
+    with obs.current().span("model/forward"):
+        _require_ported(cfg)
+        grads = (torch.is_grad_enabled()
+                 and any(p.requires_grad for p in model.parameters()))
+        if caches is not None and grads:
+            raise RuntimeError("forward with caches while grad mode is on and "
+                               "parameters require grad: training passes no "
+                               "caches, serving runs under torch.no_grad()")
+        mesh = SH.current_mesh()
+        m, dsz = SH.model_extent(mesh), SH.data_extent(mesh)
+        if m != model.tp or dsz != model.fsdp:
+            raise ValueError(f"the model holds blocks for model={model.tp}, "
+                             f"data={model.fsdp}; the current mesh has "
+                             f"model={m}, data={dsz}")
+        if m > 1:
+            SH.check_tp(cfg, m)
+        seq_split = isinstance(caches, SH.SeqSplitCaches)
+        if seq_split and (mesh is None or "data" not in mesh.axis_names):
+            raise ValueError("sequence-split caches need a mesh with a 'data' "
+                             "axis")
+        tokens = torch.as_tensor(tokens, device=model.embed.device)
+        embed = SH.fsdp_gather(model.embed)
+        x = _embed(embed, tokens, m) * math.sqrt(cfg.d_model)
+        if prefix_embeds is not None:
+            x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
+                           .to(x.dtype), x], 1)
+        x = SH.constrain_residual(x)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None]
+        if torch.is_tensor(cache_pos):
+            positions = cache_pos.reshape(-1, 1) + positions
+        elif cache_pos is not None:
+            positions = positions + int(cache_pos)
+        positions = positions.expand(b, s)
+        enc_out = None
+        if cfg.enc_layers and enc_frames is not None:
+            frames = torch.as_tensor(enc_frames, device=x.device).to(x.dtype)
+            n_x = None if caches is None else caches["xk"].shape[2] * (
+                mesh.extent("data") if seq_split else 1)
+            if caches is not None and n_x != frames.shape[1]:
+                raise ValueError(
+                    f"{frames.shape[1]} encoder frames for a cross-attention "
+                    f"cache of {n_x}: pass enc_len= to init_caches")
+            enc_out = _run_encoder(model, cfg, frames, remat)
+        if cfg.family == "hybrid":
+            x = _run_hybrid(model, cfg, x, positions, caches, cache_pos,
+                            engine, remat, seq_split)
+        else:
+            x = _run_decoder(model, cfg, x, positions, caches, cache_pos,
+                             enc_out, remat, seq_split)
+        with obs.current().span("model/head"):
+            x = rmsnorm(SH.constrain_residual(x), model.final_gamma,
+                        cfg.norm_eps)
+            # the tied embedding: one gather, its gradient from both uses
+            # summed before the reduce-scatter
+            head = (embed.T if cfg.tie_embeddings
+                    else SH.fsdp_gather(model.lm_head))
+            logits = SH.constrain_logits(
+                SH.tp_gather(SH.tp_enter(x) @ head, -1))
+            return softcap(logits.float(), cfg.final_logit_softcap), caches
 
 
 def _embed(embed: torch.Tensor, tokens, m: int) -> torch.Tensor:

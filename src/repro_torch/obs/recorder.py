@@ -26,9 +26,23 @@ paths pay a function call, never an allocation, a trace or a device sync.
 Engine code guards any extra objective evaluation behind
 ``recorder.enabled``.
 
-``annotate_xprof=True`` additionally wraps every span in a
-``torch.profiler.record_function`` so engine spans show up by name in a
-``torch.profiler`` session, beside the kernels they launch.
+While a torch profiler session records, every span of an enabled
+recorder also opens a ``_RecordFunctionFast`` range of its name: a host
+operation on the profiler's own clock, so the spans show by name in the
+session beside the kernels they launch and name the host side of any
+device idle gap inside them.  Unlike a ``record_function`` (a user
+annotation, which the profiler copies onto the device's timeline) it is
+never counted as device work.  The profiler's flag is read first: no
+profiler call is made while no session records.
+
+On a process where CUDA is initialised every span also records one pair
+of CUDA timing events on the current stream, at enter and at exit, with
+no synchronise.  A span's device time is the card's interval from the
+work enqueued after its start to the last work enqueued before its end,
+on that stream.  ``span_times()`` resolves the pairs (it synchronises
+their end events, so call it after the work) and returns per span name
+the calls, host seconds and device seconds; resolved ``"E"`` events then
+carry ``device_us``.
 """
 from __future__ import annotations
 
@@ -36,7 +50,25 @@ import threading
 import time
 from typing import Any, Dict, List
 
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
 from repro_torch.obs.registry import metrics
+
+#: resolve the spans whose device work is done once this many await it,
+#: so a long-lived recorder holds a bounded number of CUDA events
+_DRAIN_AT = 1024
+
+
+def _timing_event():
+    """A CUDA timing event recorded now on the current stream, or None on
+    a process where CUDA is not initialised."""
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 class _NullSpan:
@@ -87,34 +119,40 @@ NULL = NullRecorder()
 
 
 class _Span:
-    __slots__ = ("rec", "name", "attrs", "_ann")
+    __slots__ = ("rec", "name", "attrs", "_range", "_t0", "_ev0")
 
     def __init__(self, rec: "Recorder", name: str, attrs: dict):
         self.rec = rec
         self.name = name
         self.attrs = attrs
-        self._ann = None
+        self._range = None
 
     def __enter__(self):
         rec = self.rec
+        if _profiler._is_profiler_enabled:
+            self._range = _RecordFunctionFast(self.name)
+            self._range.__enter__()
         depth = rec._push(self.name)
+        self._t0 = time.perf_counter()
         ev = {"ph": "B", "name": self.name, "ts": rec._now_us(),
               "tid": threading.get_ident(), "depth": depth}
         if self.attrs:
             ev["args"] = self.attrs
         rec._emit(ev)
-        if rec._xprof is not None:
-            self._ann = rec._xprof(self.name)
-            self._ann.__enter__()
+        self._ev0 = _timing_event()
         return self
 
     def __exit__(self, *exc):
         rec = self.rec
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
+        ev1 = None if self._ev0 is None else _timing_event()
+        host_s = time.perf_counter() - self._t0
         depth = rec._pop()
-        rec._emit({"ph": "E", "name": self.name, "ts": rec._now_us(),
-                   "tid": threading.get_ident(), "depth": depth})
+        end = {"ph": "E", "name": self.name, "ts": rec._now_us(),
+               "tid": threading.get_ident(), "depth": depth}
+        rec._emit(end)
+        rec._timed(self.name, host_s, self._ev0, ev1, end)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -127,13 +165,14 @@ class Recorder:
     ``compile_count`` is the number of ``nvcc`` kernel builds made during
     this recorder's lifetime.  ``compile_counters`` keeps the JAX
     package's signature: the build counter is always on (the build
-    increments it), so there is nothing to install.
+    increments it), so there is nothing to install.  Spans are timed on
+    the host and, where CUDA is initialised, on the card (module
+    docstring; `span_times`).
     """
 
     enabled = True
 
-    def __init__(self, name: str = "run", compile_counters: bool = True,
-                 annotate_xprof: bool = False):
+    def __init__(self, name: str = "run", compile_counters: bool = True):
         self.name = name
         self._lock = threading.RLock()
         self.events: List[Dict[str, Any]] = []
@@ -141,11 +180,11 @@ class Recorder:
         self._local = threading.local()
         self._t0 = time.perf_counter()
         self._ts0_us = time.time() * 1e6
-        self._xprof = None
-        if annotate_xprof:
-            from torch.profiler import record_function
-            self._xprof = record_function
         self._snap0 = metrics.snapshot()
+        # per span name [calls, host s, device s or None]; device pairs
+        # (name, start event, end event, "E" event) not yet resolved
+        self._times: Dict[str, list] = {}
+        self._pending: List[tuple] = []
 
     # -- internals ----------------------------------------------------------
     def _now_us(self) -> float:
@@ -172,10 +211,48 @@ class Recorder:
         with self._lock:
             self.events.append(ev)
 
+    def _timed(self, name: str, host_s: float, ev0, ev1, end: dict) -> None:
+        with self._lock:
+            t = self._times.setdefault(name, [0, 0.0, None])
+            t[0] += 1
+            t[1] += host_s
+            if ev0 is not None:
+                self._pending.append((name, ev0, ev1, end))
+                if len(self._pending) >= _DRAIN_AT:
+                    self._resolve(wait=False)
+
+    def _resolve(self, wait: bool = True) -> None:
+        """Turn the pending event pairs into device seconds, in the order
+        they closed: all of them (``wait``: synchronising each end event),
+        or those whose end event the card has reached."""
+        with self._lock:
+            done = 0
+            for name, ev0, ev1, end in self._pending:
+                if wait:
+                    ev1.synchronize()
+                elif not ev1.query():
+                    break
+                us = 1e3 * ev0.elapsed_time(ev1)
+                end["device_us"] = us
+                t = self._times[name]
+                t[2] = (t[2] or 0.0) + us / 1e6
+                done += 1
+            del self._pending[:done]
+
     # -- public API ---------------------------------------------------------
     def span(self, name: str, **attrs) -> _Span:
         """Hierarchical trace span: ``with rec.span("coarsen", level=3):``"""
         return _Span(self, name, attrs)
+
+    def span_times(self) -> Dict[str, Dict[str, Any]]:
+        """Per span name: ``calls``, ``host_s`` (host seconds) and
+        ``device_s`` (device seconds of the calls that recorded CUDA events;
+        None where none did).  Synchronises the recorded events: call it
+        after the work."""
+        self._resolve()
+        with self._lock:
+            return {name: {"calls": c, "host_s": h, "device_s": d}
+                    for name, (c, h, d) in self._times.items()}
 
     def span_path(self) -> str:
         """Slash-joined names of the open spans on this thread."""

@@ -8,7 +8,10 @@ the same events into the Chrome trace-event JSON that Perfetto
 events, counters / gauges / trajectory points as "C" counter tracks,
 explicit-track events (serve slots, the request queue) as named threads
 via "M" thread_name metadata, and instants as "i" events.  The journal's
-lines are the JAX package's: either package reads the other's.
+lines are the JAX package's: either package reads the other's.  Both
+resolve a recorder's device-timed spans first (`Recorder.span_times`), so
+a span's "E" event carries its device time: ``device_us`` in the journal,
+``args.device_us`` in the Chrome trace.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ def write_jsonl(recs: Recorders, path: str) -> int:
                    "trajectories": rec.trajectories}
             f.write(json.dumps(hdr) + "\n")
             lines += 1
+            rec._resolve()
             with rec._lock:
                 events = list(rec.events)
             for ev in events:
@@ -105,6 +109,7 @@ def chrome_trace(recs: Recorders,
         return tracks[track]
 
     for rec in _as_list(recs):
+        rec._resolve()
         with rec._lock:
             events = list(rec.events)
         totals: Dict[str, float] = {}
@@ -115,6 +120,8 @@ def chrome_trace(recs: Recorders,
                        "pid": pid, "tid": _tid(ev), "cat": rec.name}
                 if "args" in ev:
                     out["args"] = ev["args"]
+                if "device_us" in ev:
+                    out["args"] = {"device_us": ev["device_us"]}
                 tes.append(out)
             elif ev["ph"] == "I":
                 out = {"name": ev["name"], "ph": "i", "ts": ev["ts"],

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models import shardings as SH
 from repro_torch.models.weights import leaf_groups
 
@@ -116,8 +117,9 @@ def adamw_update(model, opt_state: dict, cfg: OptConfig) -> dict:
     decay = decayed(model)
     named = list(model.named_parameters())
     step = opt_state["step"] + 1
-    gn = grad_norm(model)
-    scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
+    with obs.current().span("train/clip"):
+        gn = grad_norm(model)
+        scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     s = step.float()

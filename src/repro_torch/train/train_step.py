@@ -142,6 +142,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     backward per microbatch, scaled by 1/microbatches as the reference's
     scan: peak activation memory shrinks, FLOPs stay.  ``grad_compress``
     needs the ``err`` dict of ``init_opt_state(..., grad_compress=True)``.
+
+    Spans (`obs`): ``train/step`` holds a ``train/forward`` and a
+    ``train/backward`` per microbatch, then ``train/adamw_update`` (with
+    ``train/clip`` inside it).
     """
 
     def grads_of(model, batch):
@@ -155,10 +159,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                              f"{microbatches} microbatches")
         parts = [dict(zip(batch, mb)) for mb in zip(
             *(torch.as_tensor(v).chunk(microbatches) for v in batch.values()))]
+        rec = obs.current()
         lsum = 0.0
         for mb in parts:
-            loss = next_token_loss(model, cfg, mb, remat)
-            loss.backward()
+            with rec.span("train/forward"):
+                loss = next_token_loss(model, cfg, mb, remat)
+            with rec.span("train/backward"):
+                loss.backward()
             lsum = lsum + loss.detach()
         if microbatches > 1:
             for p in params:
@@ -167,9 +174,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
 
     def train_step(model, opt_state, batch):
         tokens = batch["tokens"]
-        with obs.current().span("train/step",
-                                tokens=int(tokens.shape[0]
-                                           * (tokens.shape[1] - 1))):
+        rec = obs.current()
+        with rec.span("train/step",
+                      tokens=int(tokens.shape[0] * (tokens.shape[1] - 1))):
             model.requires_grad_(True)
             loss = grads_of(model, batch)
             mesh = SH.current_mesh()
@@ -177,7 +184,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                 loss = average_over_data(model, loss, mesh)
             if grad_compress:
                 compress_grads(model, opt_state["err"])
-            metrics = adamw_update(model, opt_state, opt_cfg)
+            with rec.span("train/adamw_update"):
+                metrics = adamw_update(model, opt_state, opt_cfg)
             metrics["loss"] = loss
         return model, opt_state, metrics
 

@@ -39,7 +39,6 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_kaffpa.py",
-        ROOT / "tools" / "profile_torch_train.py",
         ROOT / "tools" / "serve_torch_sharded.py"] + EXAMPLES
     assert len(files) > 25 and len(EXAMPLES) == 5
     assert PORT / "core" / "hypergraph" / "refine.py" in files

@@ -2,9 +2,8 @@
 the JAX package's `repro.obs`: the same calls give the same events and
 the same Chrome trace (apart from timestamps), a journal written by one
 package reads in the other, a torn last line is dropped, the disabled
-recorder keeps nothing, ``compile_count`` counts ``nvcc`` builds, and
-``annotate_xprof=True`` puts the engine's spans into a torch.profiler
-trace."""
+recorder keeps nothing, ``compile_count`` counts ``nvcc`` builds, and a
+recorder's spans appear in a torch.profiler trace."""
 import json
 import subprocess
 import tracemalloc
@@ -212,7 +211,7 @@ def test_recorded_kaffpa_equals_unrecorded_and_reaches_the_profiler():
     g = grid2d(16, 16)
     args = (g.n, None, g.xadj, None, g.adjncy, 2, 0.03)
     cut0, part0 = tif.kaffpa(*args, seed=2, mode=tif.FAST, device="cpu")
-    rec = tobs.Recorder("kaffpa", annotate_xprof=True)
+    rec = tobs.Recorder("kaffpa")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         cut1, part1 = tif.kaffpa(*args, seed=2, mode=tif.FAST, report=rec,
