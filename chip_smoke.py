@@ -28,8 +28,9 @@ line.
 Phases:
 
  1. The card's name and power limit; build kernels/csrc/lp_affinity.cu,
-    kernels/csrc/pin_count.cu and kernels/csrc/ssd_scan.cu for sm_90a (one
-    nvcc each, started together) and print the build times.
+    kernels/csrc/pin_count.cu, kernels/csrc/ssd_scan.cu and
+    kernels/csrc/attention_fwd.cu for sm_90a (one nvcc each, started
+    together) and print the build times.
  2. lp_affinity against ``ref.affinity_ref`` at the sweep shapes of
     tests/test_kernels.py plus k = 16 (a register bucket) and k = 33 (the
     shared-memory histogram), B = 1 and 4: integer weights exactly, float
@@ -90,7 +91,10 @@ Phases:
     (``engine=None``) with the SSD launch count zeroed just before and
     read just after (54: one per Mamba layer), and on the plain path
     (``engine="chunked"``, no launch); the logits agree within 1e-3 of
-    max |logits|.  Walls after one warm-up each, and each path's peak
+    max |logits|.  On both paths the fused attention kernel's launch
+    count and the composed attention's count, zeroed just before and read
+    just after, are 9 and 0: the shared block's every application takes
+    the kernel.  Walls after one warm-up each, and each path's peak
     memory.  Then the kernel at the forward's shape (BH = 160, L = 2048,
     P = N = 64, chunk 128) on the first layer's real inputs, grouped (80
     heads per row of B and C, as the main path calls it) and per row (B
@@ -215,10 +219,14 @@ Phases:
     d_ff 5760, vocab_pad 122880, tied; 2,725,173,504 f32 parameters made
     on the card from seed 0, counted and checked): the full-sequence
     forward at B = 2, L = 2048 (wall after a warm-up, peak memory, finite
-    logits of shape (2, 2048, 122880)).  At L = 2048, S·Skv is exactly
-    ``ONLINE_THRESHOLD²``, so the forward takes the masked path: layer 0's
-    real q, k, v of a 4096-token prompt also go through ``_sdpa_online``
-    and ``_sdpa``, which agree within 1e-4 of max |out|.
+    logits of shape (2, 2048, 122880)); the timed forward takes the fused
+    attention kernel in all 40 layers and the composed path in none (the
+    counts zeroed just before and read just after; each timed forward of
+    phases 35-43 prints its two counts).  At L = 2048, S·Skv is exactly
+    ``ONLINE_THRESHOLD²``, so the composed path (the one with gradients)
+    is the masked one: layer 0's real q, k, v of a 4096-token prompt also
+    go through ``_sdpa_online`` and ``_sdpa``, which agree within 1e-4 of
+    max |out|.
 36. minicpm decode: ``prefill_step`` (one forward at cache_pos=0) of
     prompts of 64 and 48 tokens into two slots of one cache, then 16
     batched ``decode_step``s with per-row cursors; the prefills' last
@@ -416,6 +424,22 @@ Phases:
     and 8·N·T with their ratios — and gemma2-9B at 2 layers on a (1, 1)
     stand-in, whose collectives per step equal phase 57's ``mesh/*``
     counter deltas on the NCCL (1, 1) mesh.
+61. The fused attention kernel (``ops.attention_fwd`` →
+    kernels/csrc/attention_fwd.cu) at the benchmark cells' calls:
+    minicpm-2B's (24 × 2048, 36 heads of 64) and the hybrid's shared
+    block (32 × 2048, 32 heads of 80), causal, on seeded draws: within
+    1e-5 of max |out| of the composed path (``models/attention.
+    composed``, in batch chunks), timed beside its bound (the causal
+    FLOPs at 67 TFLOP/s FFMA against q, k, v and o at 3.35 TB/s), the
+    composed path on the whole batch, and PyTorch's
+    ``scaled_dot_product_attention`` (``library_ms``, timed only: the
+    port never calls it); then minicpm-2B at full width cut to 2 layers,
+    B = 2 × 2048: a forward without gradient launches the kernel once per
+    layer and takes the composed path nowhere, a forward under grad mode
+    with gradients takes it in every layer, and their logits agree within
+    1e-4 of max |logits| (each count zeroed just before its forward).  The
+    kernels line gives each cell's row the launches of its model's main
+    path: phase 13's hybrid forward and phase 35's minicpm forward.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  No jax and nothing of the JAX package is imported.
@@ -1056,6 +1080,108 @@ def launch_ms(torch, call, per_call, calls=10) -> dict:
     return {name: t / c / 1e3 for name, (c, t) in seen.items()}
 
 
+#: the benchmark cells' attention calls: (batch, length, heads, head size)
+ATTN_SHAPES = {"minicpm-2b": (24, 2048, 36, 64),
+               "hybrid-mamba2-2.3b": (32, 2048, 32, 80)}
+
+
+def attention_bound(b, l, h, hd) -> tuple:
+    """(ms, by, flop, bytes) of one causal self-attention call: 2·hd FLOP
+    for the score and 2·hd for the value of each of the L (L + 1) / 2
+    query-key pairs per head at the f32 FFMA rate, against q, k, v read
+    once and o written once."""
+    flop = 4 * hd * b * h * (l * (l + 1) // 2)
+    nbytes = 4 * 4 * b * l * h * hd
+    t_ops, t_bytes = flop / PEAK_F32_PER_S, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flop, nbytes)
+
+
+def attention_phase(torch, np, dev, card) -> list:
+    """Phase 61; returns the kernels line's row per cell shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    rows = []
+    for cell, (b, l, h, hd) in ATTN_SHAPES.items():
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(b * l + h)
+        q, k, v = (torch.randn((b, l, h, hd), generator=g, device=dev)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(hd)
+
+        def kernel():
+            return ops.attention_fwd(q, k, v, scale=scale)
+
+        def plain():
+            return A.composed(q, k, v, scale=scale)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=scale).transpose(1, 2)
+
+        got = kernel()
+        gap = 0.0
+        for lo in range(0, b, 4):
+            want = A.composed(q[lo:lo + 4], k[lo:lo + 4], v[lo:lo + 4],
+                              scale=scale)
+            gap = max(gap, max_rel(torch, got[lo:lo + 4], want)[1])
+            del want
+        check(gap <= 1e-5, f"attention kernel at {cell}'s shape: "
+              f"{gap:.3e} of max |out| from the composed path (> 1e-5)")
+        lib_gap = max_rel(torch, library(), got)[1]
+        del got
+        ms = cuda_ms(torch, kernel, iters=10, warmup=2)
+        library_ms = cuda_ms(torch, library, iters=5, warmup=1)
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        bms, by, flop, nbytes = attention_bound(b, l, h, hd)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bms, bound_by=by, max_rel_err=gap,
+                   library_rel_gap=lib_gap, roofline=bms / ms,
+                   tflop_s=flop / ms / 1e9, shape=[b, l, h, hd])
+        log(f"attention {cell} B={b} L={l} heads={h}x{hd} causal: kernel "
+            f"{ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s, {bms / ms:.2%} "
+            f"of its bound {bms:.4f} ms by {by}: {flop} FLOP, {nbytes} B), "
+            f"composed {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms (gap {lib_gap:.3e}), max rel err "
+            f"{gap:.3e} [{card}]")
+        rows.append(row)
+        del q, k, v
+    # the dispatch on a real forward: minicpm-2B's width, 2 layers
+    cfg, model = cut_model(torch, T, "minicpm_2b", 2, dev)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    tokens = torch.randint(0, cfg.vocab, (2, 2048), generator=gen,
+                           device=dev)
+    attention_paths()
+    with torch.no_grad():
+        fused = T.forward(model, cfg, tokens)[0]
+    launches, composed = attention_paths(True).values()
+    for prm in model.parameters():
+        prm.requires_grad_(True)
+    attention_paths()
+    with torch.enable_grad():
+        plain = T.forward(model, cfg, tokens)[0].detach()
+    grad_launches, grad_composed = attention_paths(True).values()
+    _, gap = max_rel(torch, fused, plain)
+    log(f"attention dispatch, {cfg.name} at 2 layers, B=2 L=2048: no grad "
+        f"{launches:g} launches, {composed:g} composed; with gradients "
+        f"{grad_launches:g} launches, {grad_composed:g} composed; logits "
+        f"{gap:.3e} of max |logits| apart [{card}]")
+    check(launches == cfg.n_layers and composed == 0,
+          "a forward without gradient did not take the kernel in every layer")
+    check(grad_launches == 0 and grad_composed == cfg.n_layers,
+          "a forward with gradients launched the attention kernel")
+    check(gap <= 1e-4, f"kernel and composed forwards {gap:.3e} apart")
+    del model, fused, plain
+    torch.cuda.empty_cache()
+    rows[0]["launches_by_path"] = {"dispatch_2_layers": launches}
+    return rows
+
+
 def max_rel(torch, got, want) -> tuple:
     """(max |got − want|, that over max |want|)."""
     err = float((got - want).abs().max())
@@ -1083,18 +1209,35 @@ def step_spans(rec) -> dict:
     return out
 
 
+def attention_paths(count=None) -> dict:
+    """Zero the fused attention kernel's launch count and the composed
+    attention's call count (``count=None``), or read them both
+    (``count=True``) as {"launches", "composed"}."""
+    from repro_torch import obs
+    from repro_torch.kernels.attention import LAUNCHES
+    from repro_torch.models.attention import COMPOSED
+    names = {"launches": LAUNCHES, "composed": COMPOSED}
+    if count is None:
+        for name in names.values():
+            obs.metrics.reset(name)
+        return {}
+    return {k: int(obs.metrics.get(v)) for k, v in names.items()}
+
+
 def run_forward(torch, T, model, cfg, tokens, engine):
-    """One full-sequence forward with the SSD launch count zeroed just
-    before and read just after; returns (logits, wall s, launches)."""
+    """One full-sequence forward with the SSD launch count and the
+    attention counts zeroed just before and read just after; returns
+    (logits, wall s, SSD launches, ``attention_paths``)."""
     from repro_torch import obs
     from repro_torch.kernels.ssd_scan import LAUNCHES
     torch.cuda.synchronize()
     obs.metrics.reset(LAUNCHES)
+    attention_paths()
     t0 = time.perf_counter()
     logits, _ = T.forward(model, cfg, tokens, engine=engine)
     torch.cuda.synchronize()
     return (logits, time.perf_counter() - t0,
-            int(obs.metrics.get(LAUNCHES)))
+            int(obs.metrics.get(LAUNCHES)), attention_paths(True))
 
 
 def ssd_rank_phase(torch, np, dev, card, p, n, q) -> dict:
@@ -1129,10 +1272,11 @@ def ssd_rank_phase(torch, np, dev, card, p, n, q) -> dict:
             "bound_ms": bms, "bound_by": by, "max_abs_err": err}
 
 
-def zamba2_phases(torch, np, dev, card) -> list:
+def zamba2_phases(torch, np, dev, card) -> tuple:
     """Phases 12-16 and 54; returns the ssd_scan rows of the kernels line
     (the per-row form, comparable with earlier runs, and the grouped form
-    the main path runs, with phase 54's per-rank shape)."""
+    the main path runs, with phase 54's per-rank shape) and the attention
+    counts of phase 13's forward on the kernel path."""
     from repro_torch import obs
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops, ref
@@ -1195,8 +1339,8 @@ def zamba2_phases(torch, np, dev, card) -> list:
         torch.cuda.reset_peak_memory_stats()
         walls[engine] = run_forward(torch, T, model, cfg, tokens, engine)
         peaks[engine] = torch.cuda.max_memory_allocated()
-    logits, wall_k, launches_k = walls[None]
-    logits_c, wall_c, launches_c = walls["chunked"]
+    logits, wall_k, launches_k, attn_k = walls[None]
+    logits_c, wall_c, launches_c, attn_c = walls["chunked"]
     check(logits.shape == (bsz, seq, cfg.vocab_pad),
           f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -1211,6 +1355,14 @@ def zamba2_phases(torch, np, dev, card) -> list:
           f"{launches_k} times, expected {cfg.n_layers}")
     check(launches_c == 0, "engine='chunked' launched ssd_scan")
     check(err_rel <= 1e-3, f"kernel and chunked logits differ: {err_rel}")
+    shared = cfg.n_layers // cfg.attn_every
+    log(f"main path zamba2 forward attention: {attn_k} on the kernel path, "
+        f"{attn_c} on the chunked path ({shared} shared-block "
+        f"applications) [{card}]")
+    for attn in (attn_k, attn_c):
+        check(attn == {"launches": shared, "composed": 0},
+              f"zamba2 forward attention {attn}, expected the kernel in "
+              f"all {shared} shared-block applications")
     del logits_c, walls
 
     # the kernel on the first Mamba layer's real inputs (the forward's
@@ -1346,7 +1498,7 @@ def zamba2_phases(torch, np, dev, card) -> list:
     rows[1]["per_rank_shape"] = ssd_rank_phase(torch, np, dev, card, p, n, q)
     err = rows[1]["per_rank_shape"]["max_abs_err"]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err)
-    return rows
+    return rows, attn_k
 
 
 def compare_sep(torch, nbr, wgt, vwgt, labels) -> float:
@@ -2344,22 +2496,27 @@ def timed(torch, fn):
 
 def timed_forward(torch, T, model, cfg, tokens, card, **kw):
     """A warm-up, then one full-sequence forward (``kw`` passed on)
-    timed with its peak memory; the logits must be finite, of shape (B,
-    L, vocab_pad).  Returns the wall."""
+    timed with its peak memory and its attention counts; the logits must
+    be finite, of shape (B, L, vocab_pad).  Returns (the wall,
+    ``attention_paths`` of the timed forward)."""
     T.forward(model, cfg, tokens, **kw)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    attention_paths()
     logits, wall = timed(torch, lambda: T.forward(model, cfg, tokens,
                                                   **kw)[0])
+    paths = attention_paths(True)
     peak = torch.cuda.max_memory_allocated()
     b, l = tokens.shape
     log(f"{cfg.name} forward B={b} L={l}: wall_s={wall:.4f} "
         f"({b * l / wall:.1f} tokens/s), peak memory {peak} B "
-        f"({peak / 2**30:.2f} GiB) [{card}]")
+        f"({peak / 2**30:.2f} GiB); attention calls: {paths['launches']} "
+        f"fused kernel launches, {paths['composed']} composed [{card}]")
     check(logits.shape == (b, l, cfg.vocab_pad),
           f"{cfg.name}: logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()),
           f"{cfg.name}: non-finite logits")
-    return wall
+    return wall, paths
 
 
 def decode_against_forward(torch, np, T, model, cfg, prompts, steps, dev,
@@ -2491,8 +2648,9 @@ def log_step_bound(np, cfg, walls, n_bytes, what, card) -> None:
         f"{PEAK_BYTES_PER_S / 1e12} TB/s) [{card}]")
 
 
-def minicpm_phases(torch, np, dev, card, tokens) -> None:
-    """Phases 35-37: minicpm-2B's forward, decode and serve."""
+def minicpm_phases(torch, np, dev, card, tokens) -> dict:
+    """Phases 35-37: minicpm-2B's forward, decode and serve; returns the
+    attention counts of phase 35's timed forward."""
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import (apply_rope, causal_mask, rmsnorm,
@@ -2500,11 +2658,14 @@ def minicpm_phases(torch, np, dev, card, tokens) -> None:
 
     # -- 35. minicpm-2B, the full published config ---------------------------
     cfg, model = make_decoder(torch, T, "minicpm_2b", dev, card)
-    timed_forward(torch, T, model, cfg, tokens(cfg, *DEC_FWD["minicpm_2b"]),
-                  card)
-    # at L = 2048 the forward takes the masked path (S·Skv is exactly
-    # ONLINE_THRESHOLD²): layer 0's real q, k, v of a longer prompt through
-    # both attentions
+    _, paths = timed_forward(torch, T, model, cfg,
+                             tokens(cfg, *DEC_FWD["minicpm_2b"]), card)
+    check(paths == {"launches": cfg.n_layers, "composed": 0},
+          f"minicpm-2b forward attention {paths}, expected the kernel in "
+          f"all {cfg.n_layers} layers")
+    # at L = 2048 the composed path (taken with gradients) is the masked
+    # one (S·Skv is exactly ONLINE_THRESHOLD²): layer 0's real q, k, v of a
+    # longer prompt through both composed attentions
     blk = model.blocks[0]
     x = rmsnorm(model.embed[tokens(cfg, 1, ONLINE_L)]
                 * math.sqrt(cfg.d_model), blk.ln1, cfg.norm_eps)
@@ -2536,6 +2697,7 @@ def minicpm_phases(torch, np, dev, card, tokens) -> None:
     serve_phase(torch, np, T, model, cfg, dev, card)
     log(f"minicpm-2b phases: peak memory "
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return paths
 
 
 def llama4_phases(torch, np, dev, card, tokens, gen) -> tuple:
@@ -2867,8 +3029,8 @@ def whisper_phases(torch, np, dev, card, tokens, gen) -> None:
     b, l = DEC_FWD["whisper_medium"]
     frames = torch.randn(b, cfg.enc_positions, cfg.d_model, generator=gen,
                          device=dev)
-    wall = timed_forward(torch, T, model, cfg, tokens(cfg, b, l), card,
-                         enc_frames=frames)
+    wall, _ = timed_forward(torch, T, model, cfg, tokens(cfg, b, l), card,
+                            enc_frames=frames)
     # the encoder alone (warm from the forward): its share of the wall
     enc, wall_enc = timed(torch, lambda: T._run_encoder(model, cfg, frames))
     check(bool(torch.isfinite(enc).all()), "whisper encoder: non-finite")
@@ -3416,14 +3578,15 @@ def data_axis_phases(torch, np, dev, card, mesh, gen) -> list:
 def decoder_phases(torch, np, dev, card) -> dict:
     """Phases 35-44 and 53, one model at a time (each freed before the
     next); returns lp_affinity's launches on the expert placement path,
-    pin_count's on phase 53's kahypar and, under "errors", each kernel's
-    largest difference from the plain version on those paths' calls."""
+    pin_count's on phase 53's kahypar, the attention counts of phase 35's
+    forward and, under "errors", each kernel's largest difference from the
+    plain version on those paths' calls."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def tokens(cfg, *shape):
         return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
 
-    minicpm_phases(torch, np, dev, card, tokens)
+    minicpm_attention = minicpm_phases(torch, np, dev, card, tokens)
     torch.cuda.empty_cache()
     launches, lp_err = llama4_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
@@ -3434,6 +3597,7 @@ def decoder_phases(torch, np, dev, card) -> dict:
     whisper_phases(torch, np, dev, card, tokens, gen)
     torch.cuda.empty_cache()
     return {"expert_placement": launches,
+            "minicpm_attention": minicpm_attention,
             "traffic_kahypar": traffic["traffic_kahypar"],
             "errors": {"lp_affinity": max(lp_err,
                                           traffic["lp_affinity_err"]),
@@ -3696,7 +3860,8 @@ def main() -> int:
     from repro_torch.core.csr import to_coo, to_ell
     from repro_torch.core.partition import balance, is_feasible
     from repro_torch.io.generators import barabasi_albert, grid2d
-    from repro_torch.kernels import lp_affinity, pin_affinity, ref, ssd_scan
+    from repro_torch.kernels import (attention, lp_affinity, pin_affinity,
+                                     ref, ssd_scan)
 
     # -- 1. card, build -----------------------------------------------------
     card = card_line()
@@ -3709,10 +3874,10 @@ def main() -> int:
         lib = build()
         return lib, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(timed_build, b)
                   for b in (lp_affinity.build, pin_affinity.build,
-                            ssd_scan.build)]
+                            ssd_scan.build, attention.build)]
         for fut in builds:
             lib, secs = fut.result()
             log(f"built {lib.relative_to(ROOT)} in {secs:.3f} s")
@@ -3821,7 +3986,7 @@ def main() -> int:
 
     main = rows_out[1]    # level-0 refinement launches one row
     pin_row, kahypar_km1 = kahypar_phases(torch, np, dev, card)
-    ssd_rows = zamba2_phases(torch, np, dev, card)
+    ssd_rows, hybrid_attention = zamba2_phases(torch, np, dev, card)
     sep_row, ep_replication = nodesep_phases(torch, np, dev, card)
     paths = memetic_phases(torch, np, dev, card)
     dpaths = distributed_phases(torch, np, dev, card, cut, kahypar_km1,
@@ -3832,6 +3997,12 @@ def main() -> int:
     rec_launches, rec_err = formats_phase(torch, np, g, part, dev, card)
     analysis_phase(torch, np, dev, card)
     dryrun_phase(torch, np, dev, card, trn["train45"], calls57)
+    attn_rows = attention_phase(torch, np, dev, card)
+    # each cell's attention row counts its model's main path: phase 35's
+    # minicpm forward and phase 13's hybrid forward
+    for row, counts in zip(attn_rows, (dec["minicpm_attention"],
+                                       hybrid_attention)):
+        row["launches"] = counts["launches"]
     # the launches of the memetic slice's paths, each counted from 0 around
     # its own run (phases 23, 25-28), beside the main path's; lp_affinity's
     # count on a path includes the launches it made as sep_affinity
@@ -3873,7 +4044,11 @@ def main() -> int:
             "expert_placement": dec["expert_placement"],
             "partition_layers": trn["partition_layers"],
             "kaffpa_recorded": rec_launches}},
-        pin_row, *ssd_rows, sep_row]}))
+        pin_row, *ssd_rows, sep_row,
+        *({"name": "attention_fwd", "route": "cuda", "cell": cell,
+           "source": "src/repro_torch/kernels/csrc/attention_fwd.cu",
+           "replaces": None, **row}
+          for cell, row in zip(ATTN_SHAPES, attn_rows))]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

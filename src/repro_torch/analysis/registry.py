@@ -47,6 +47,7 @@ import torch
 LP_LAUNCHES = "kernels/lp_affinity/launches"
 PIN_LAUNCHES = "kernels/pin_count/launches"
 SSD_LAUNCHES = "kernels/ssd_scan/launches"
+ATTN_LAUNCHES = "kernels/attention/launches"
 
 NOISE = 1e-4        # lp._NOISE: the tie-break draws lie in [0, NOISE)
 _DRAWS_SEED = 0xC0FFEE
@@ -701,6 +702,20 @@ def _build_ssd(device, mesh=None):
     return fn, tuple(_put(a, dev) for a in (x, ld, b, c))
 
 
+def _build_attention(device, mesh=None):
+    from repro_torch.core.csr import resolve_device
+    from repro_torch.kernels import ops
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 80, 4, 64)).astype(np.float32)
+    k = rng.standard_normal((2, 96, 2, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 96, 2, 64)).astype(np.float32)
+
+    def fn(q, k, v):
+        return ops.attention_fwd(q, k, v, scale=0.125, q_offset=16)
+    return fn, tuple(_put(a, dev) for a in (q, k, v))
+
+
 # ---------------------------------------------------------------------------
 # serve entries
 # ---------------------------------------------------------------------------
@@ -952,6 +967,12 @@ ENTRIES: Tuple[EntryPoint, ...] = (
         build=_build_ssd,
         tags=_T({"hygiene"}),
         kernels=(SSD_LAUNCHES,),
+    ),
+    EntryPoint(
+        name="kernels/attention",
+        build=_build_attention,
+        tags=_T({"hygiene"}),
+        kernels=(ATTN_LAUNCHES,),
     ),
     EntryPoint(
         name="serve/prefill_step1",

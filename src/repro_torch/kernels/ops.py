@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import attention as _attk
 from repro_torch.kernels import lp_affinity as _lpk
 from repro_torch.kernels import pin_affinity as _pink
 from repro_torch.kernels import ref as _ref
@@ -165,3 +166,37 @@ def ssd_scan(x: torch.Tensor, logdecay: torch.Tensor, b: torch.Tensor,
         y = _ssdk.ssd_scan_cuda(x, logdecay.contiguous(), b, c, chunk,
                                 heads)
     return y[:, :l, :p]
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float, q_offset: int = 0, window=None,
+                  is_causal: bool = True, cap=None) -> torch.Tensor:
+    """Attention forward: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), query
+    head h reading KV head h // (H / KV) → (B, Sq, H, hd).
+
+    Query row i sits at position i + ``q_offset`` (an int), key j at j;
+    ``is_causal`` keeps keys j <= i + q_offset, ``window`` (None = global)
+    keys j > i + q_offset − window; scores are ``scale``·q·k, softcapped
+    by ``cap``, and a masked score is -1e30 (a row with no key left
+    averages every value).  A CPU tensor takes the plain version
+    (``ref.attention_ref``); a CUDA tensor launches the fused kernel (f32,
+    hd in 64, 80, 128; strides the kernel cannot read are copied first)
+    or raises.
+
+    The kernel has no backward: on a CUDA tensor under grad mode with an
+    input that requires a gradient this raises rather than return a result
+    cut from the graph.  ``models/attention.attention`` sends such calls to
+    its composed path.
+    """
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, scale=scale, q_offset=q_offset,
+                                  window=window, is_causal=is_causal,
+                                  cap=cap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "ops.attention_fwd: the fused attention kernel has no backward; "
+            "models/attention.attention takes the composed path for inputs "
+            "that need a gradient")
+    q, k, v = (t if _attk.readable(t) else t.contiguous() for t in (q, k, v))
+    return _attk.attention_cuda(q, k, v, scale=scale, q_offset=q_offset,
+                                window=window, is_causal=is_causal, cap=cap)

@@ -124,3 +124,31 @@ def ssd_scan_grouped_ref(x: torch.Tensor, logdecay: torch.Tensor,
         b, c = (m[:, None].expand(g, heads, l, n).reshape(g * heads, l, n)
                 for m in (b, c))
     return ssd_scan_ref(x, logdecay, b, c)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float, q_offset: int = 0, window=None,
+                  is_causal: bool = True, cap=None) -> torch.Tensor:
+    """Attention over the whole (Sq, Skv) score matrix (the fused
+    attention kernel's plain version).
+
+    q (B, Sq, H, hd), k and v (B, Skv, KV, hd); query head h reads KV head
+    h // (H / KV).  Query row i sits at position i + ``q_offset``, key j
+    at j: ``is_causal`` keeps keys j <= i + q_offset and ``window`` (None
+    = global) keys j > i + q_offset − window.  Scores are scale·q·k,
+    then cap·tanh(·/cap) when ``cap`` is given; a masked score is -1e30,
+    so a row with no key left averages every value.  → f32 (B, Sq, H, hd).
+    """
+    sq, skv = q.shape[1], k.shape[1]
+    rep = q.shape[2] // k.shape[2]
+    k, v = (t.float().repeat_interleave(rep, 2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    key = torch.arange(skv, device=q.device)[None, :]
+    keep = (key <= qpos) if is_causal else torch.ones_like(key <= qpos)
+    if window is not None:
+        keep = keep & (key > qpos - window)
+    p = torch.softmax(s.masked_fill(~keep, -1e30), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)

@@ -19,6 +19,13 @@ rank scores its own keys under the causal mask and window taken by
 the online-softmax triple is merged over ``data``: the running max by a
 pmax, the exp-sum and the weighted values by one psum.  A split of one
 (a data extent of 1) merges nothing and takes the unsplit path.
+
+The scores and their softmax run in one of two ways, chosen from what the
+inputs show (``kernel_takes``): the fused kernel (``ops.attention_fwd``:
+no logits tensor in device memory, tiles the mask removes never computed)
+for f32 CUDA inputs that need no gradient, or else the composed path
+(``_sdpa``, or ``_sdpa_online`` above ``ONLINE_THRESHOLD``²), which is
+the only path with a backward and the one the kernel is held to.
 """
 from __future__ import annotations
 
@@ -26,9 +33,12 @@ import math
 
 import torch
 
+from repro_torch.kernels import attention as ATK
+from repro_torch.kernels import ops
 from repro_torch.models import shardings as SH
 from repro_torch.models.layers import (apply_rope, causal_mask, normal,
                                        rope_freqs, softcap, whole)
+from repro_torch.obs import metrics
 
 
 def init_attn(gen: torch.Generator, cfg, dtype, keep=whole) -> dict:
@@ -126,6 +136,43 @@ def _sdpa_online(q, k, v, cap, scale, *, q_offset, window=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
+def composed(q, k, v, *, scale, q_offset=0, window=None, is_causal=True,
+             cap=None):
+    """The composed path of one unsplit call: ``_sdpa`` on the whole
+    (Sq, Skv) mask, or ``_sdpa_online`` over KV blocks where Sq·Skv
+    exceeds ``ONLINE_THRESHOLD``².  Both apply ``window`` whenever it is
+    given (``attention`` drops it for a non-causal dense call, as the
+    reference does).  What ``ops.attention_fwd`` is held to on the
+    card."""
+    sq, skv = q.shape[1], k.shape[1]
+    if sq * skv > ONLINE_THRESHOLD ** 2:
+        return _sdpa_online(q, k, v, cap, scale, q_offset=q_offset,
+                            window=window, is_causal=is_causal)
+    mask = _kv_mask(sq, skv, q_offset, window, is_causal, q.device)
+    return _sdpa(q, k, v, mask, cap, scale)
+
+
+#: calls of ``attention`` on CUDA tensors that took the composed path (the
+#: fused kernel's calls count under ``kernels/attention/launches``); a CPU
+#: call has no kernel to miss and counts nowhere, as it launches none
+COMPOSED = "models/attention/composed"
+
+
+def kernel_takes(q, k, v, cache_pos, merged: bool) -> bool:
+    """Whether the fused kernel takes a call, its device aside: f32 q, k,
+    v that need no gradient (not under grad mode with an input that
+    requires one: training, and its remat recomputation, keep the
+    composed path, which has the backward), an int cursor or none (per-row
+    tensor cursors keep the composed path), no sequence-split merge over
+    ``data``, a head size the kernel is built for, and at least one query
+    tile (one-token decode steps keep the composed path)."""
+    return (all(t.dtype == torch.float32 for t in (q, k, v))
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v)))
+            and not torch.is_tensor(cache_pos) and not merged
+            and q.shape[-1] in ATK.HEAD_DIMS and q.shape[1] >= ATK.Q_TILE)
+
+
 def split_slots(cache_pos, s: int, smax: int, mesh) -> tuple:
     """(q_offset, cols, src, key_lo) of a step of ``s`` tokens at the int
     ``cache_pos`` into a cache whose ``smax`` positions are this data
@@ -216,20 +263,26 @@ def attention(p, x, cfg, positions, *, window=None, is_causal=True,
     elif seq_split:
         key_lo = mesh.axis_index("data") * k.shape[1]
     scale = 1.0 / math.sqrt(hd)
-    if seq_split and mesh.extent("data") > 1:
-        out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
-                           q_offset=q_offset, window=window,
-                           is_causal=is_causal, key_lo=key_lo, merge=mesh)
-    elif s * k.shape[1] > ONLINE_THRESHOLD ** 2:
-        # (a split of one: the rank's keys are all the keys, key_lo = 0)
-        out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
-                           q_offset=q_offset, window=window,
-                           is_causal=is_causal)
+    merged = seq_split and mesh.extent("data") > 1
+    if not (is_causal or merged or s * k.shape[1] > ONLINE_THRESHOLD ** 2):
+        window = None   # the reference's dense path: causal masks only
+    # (a split of one: the rank's keys are all the keys, key_lo = 0)
+    if q.is_cuda and kernel_takes(q, k, v, cache_pos, merged):
+        out = ops.attention_fwd(q, k, v, scale=scale, q_offset=q_offset,
+                                window=window, is_causal=is_causal,
+                                cap=cfg.attn_logit_softcap)
     else:
-        # the reference's dense path applies the window to causal masks only
-        mask = _kv_mask(s, k.shape[1], q_offset,
-                        window if is_causal else None, is_causal, x.device)
-        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, scale)
+        if q.is_cuda:
+            metrics.inc(COMPOSED)
+        if merged:
+            out = _sdpa_online(q, k, v, cfg.attn_logit_softcap, scale,
+                               q_offset=q_offset, window=window,
+                               is_causal=is_causal, key_lo=key_lo,
+                               merge=mesh)
+        else:
+            out = composed(q, k, v, scale=scale, q_offset=q_offset,
+                           window=window, is_causal=is_causal,
+                           cap=cfg.attn_logit_softcap)
     return SH.tp_psum(out.reshape(b, s, -1) @ p.wo), cache
 
 
