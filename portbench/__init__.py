@@ -13,5 +13,7 @@ mix or one per-layer metric lives in a file of its own, found by name:
     metrics/<metric>.py        one reader per per-layer metric
     reference/<family>.py      weights layout and plain PyTorch forward
 
-``sut.py`` is the one module that imports the port.
+``sut.py`` is the one module that imports the port.  A cell of several
+chips runs as one process per card (``ranks.py``) on the mesh its traffic
+names.
 """

@@ -9,10 +9,19 @@ port's scorer or trainer:
              token of a training batch changed;
   unchanged  (training) a step that returns its state unchanged: the loss
              of the batch, and no update.
+
+and, for a run on several ranks, a rank that fails in the window (its
+third forward, the second of the window): on rank 1
+
+  raise      raises;
+  stall      stops answering (sleeps for an hour).
 """
 from __future__ import annotations
 
+import time
+
 import torch
+import torch.distributed as dist
 
 from portbench import sut
 
@@ -54,7 +63,28 @@ class UnchangedTrainer(sut.Trainer):
             return next_token_loss(self.model, self.pc, {"tokens": tokens})
 
 
-SCORE = {"half": HalfScorer, "token": TokenScorer}
+class FailingScorer(sut.Scorer):
+    how = "raise"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.calls = 0
+
+    def forward(self, tokens):
+        self.calls += 1
+        if self.calls == 3 and dist.get_rank() == 1:
+            if self.how == "raise":
+                raise RuntimeError("a fault planted on rank 1")
+            time.sleep(3600)
+        return super().forward(tokens)
+
+
+class StallingScorer(FailingScorer):
+    how = "stall"
+
+
+SCORE = {"half": HalfScorer, "token": TokenScorer, "raise": FailingScorer,
+         "stall": StallingScorer}
 TRAIN = {"half": HalfTrainer, "token": TokenTrainer,
          "unchanged": UnchangedTrainer}
 

@@ -18,6 +18,15 @@ weights and tokens, and ``logits_gap`` is the largest
 max |logits − reference| / max |reference| over the rows.  The pinned
 buffer's allocation is the check's, not set-up's, and is not counted in
 ``setup_s``.
+
+A cell of several chips (``"mesh"`` in its traffic, as {"data": 1,
+"model": 4}) runs this loop in every rank on the port's mesh: each rank
+draws its blocks of the weights one group at a time, and every rank
+feeds the whole batch and gets the whole logits.  Set-up ends after a
+barrier, so ``setup_s`` covers the slowest rank.  Rank 0 keeps the
+sample, and after the window it alone runs the reference, on weights
+drawn again one group at a time as it reads them (`C.Streamed`), so no
+card has to hold the model whole; the other ranks return None.
 """
 from __future__ import annotations
 
@@ -45,10 +54,15 @@ def run(ctx) -> dict:
     cfg, tr, dev = ctx.cell.config, ctx.cell.traffic, ctx.device
     rows, length, count = tr["batch"], tr["seq_len"], tr["pool"]
     within = tr["check_within"]
-    w = C.draw(ctx.family.spec(cfg), ctx.seed, dev)
+    if tr.get("mesh", {}).get("data", 1) != 1:
+        raise ValueError("the score loop feeds every rank the whole batch: "
+                         "it runs meshes whose data extent is 1")
+    spec = ctx.family.spec(cfg)
+    w = ctx.weights(spec)
     pool = C.token_pool(ctx.seed, count + 1, rows, length, cfg["vocab"], dev)
     scorer = ctx.scorer(cfg, tr, w)
-    sample = sampled_rows(ctx.seed, within, rows, tr["sample"])
+    sample = sampled_rows(ctx.seed, within, rows, tr["sample"]) \
+        if ctx.rank == 0 else []
     cuda = dev.type == "cuda"
     t = time.perf_counter()
     kept = torch.empty((len(sample), length, C.vocab_pad(cfg)),
@@ -57,6 +71,7 @@ def run(ctx) -> dict:
     copier = torch.cuda.Stream(dev) if cuda else None
     scorer.forward(pool[count])
     ctx.sync()
+    ctx.barrier()
     setup_s = time.perf_counter() - ctx.t_start - check_s
     ctx.reset_peak()
 
@@ -76,8 +91,14 @@ def run(ctx) -> dict:
 
     win = window(ctx, iterate, tr["trace_iters"], min_iters=within)
     ctx.sync()                            # the last copies have landed
-    memory_peak = ctx.memory_peak()
+    memory_peak, ranks = ctx.over_ranks(ctx.memory_peak(), win["trace"])
     del scorer
+    if ctx.mesh is not None:
+        del w
+        if ctx.rank:
+            ctx.free()
+            return None
+        w = C.Streamed(spec, ctx.seed, dev)
     ctx.free()
     gap = 0.0
     with torch.no_grad(), C.precision("f32", dev):
@@ -92,5 +113,5 @@ def run(ctx) -> dict:
                 / win["window_s"]},
             "attempted": win["count"] * rows, "failed": 0,
             "readings": {"logits_gap": gap},
-            "memory_peak_bytes": memory_peak,
+            "memory_peak_bytes": memory_peak, "ranks": ranks,
             "trace": win["trace"], "traced": win["traced"]}

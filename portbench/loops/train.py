@@ -81,6 +81,8 @@ def trajectory(trainer, pool, steps: int, spec, seed, device, sync):
 
 
 def run(ctx) -> dict:
+    if ctx.world > 1:
+        raise ValueError(f"{ctx.cell.name}: the train loop runs on one chip")
     cfg, tr, dev = ctx.cell.config, ctx.cell.traffic, ctx.device
     rows, length, count = tr["global_batch"], tr["seq_len"], tr["pool"]
     steps = tr["check_steps"]
@@ -117,4 +119,5 @@ def run(ctx) -> dict:
                            / win["window_s"]},
             "attempted": win["count"], "failed": 0,
             "readings": readings, "memory_peak_bytes": memory_peak,
+            "ranks": 1,
             "trace": win["trace"], "traced": win["traced"]}

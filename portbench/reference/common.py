@@ -9,14 +9,16 @@ control can run the same code one precision lower (`precision`).
 Weights are drawn on the device from the seed in a few large calls: one
 ``randn`` per group (the embedding, each layer, the shared block, the
 final norm), from a generator seeded by the run's seed and the group's
-name, so any group can be drawn again alone.  Each leaf is a view into
-its group's buffer, shaped and scaled by its ``init``.
+name, so any group can be drawn again alone (`Streamed` draws them as
+they are read).  Each leaf is a view into its group's buffer, shaped and
+scaled by its ``init``.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
 import math
+from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -157,6 +159,37 @@ def draw(spec: list, seed: int, device, only: str | None = None) -> dict:
         for (name, shape, init), part in zip(leaves, flat.split(sizes)):
             out[name] = _shaped(part, init).view(shape)
     return out
+
+
+class Streamed(Mapping):
+    """The weights of ``spec`` as `draw` gives them, drawn one group at a
+    time as they are read: reading a leaf of another group than the one
+    held frees that group and draws the leaf's, so at most one group is
+    held (beside what the reader keeps).  A family's ``forward`` reads it
+    as it reads the whole draw, and gives the same logits, bit for bit.
+    ``draws`` counts the groups drawn."""
+
+    def __init__(self, spec: list, seed: int, device):
+        self._spec, self._seed, self._device = spec, seed, device
+        self._group_of = {name: group for group, name, *_ in spec}
+        self._group, self._held = None, {}
+        self.draws = 0
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        group = self._group_of[name]
+        if group != self._group:
+            self._group, self._held = None, {}
+            self._held = draw(self._spec, self._seed, self._device,
+                              only=group)
+            self._group = group
+            self.draws += 1
+        return self._held[name]
+
+    def __iter__(self):
+        return iter(self._group_of)
+
+    def __len__(self) -> int:
+        return len(self._group_of)
 
 
 def groups_of(spec: list) -> list:

@@ -10,6 +10,11 @@ per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and last
 ``checks``, each number ``correct`` compared beside its limit (also the
 last lines of standard error).  Exits non-zero with no result line
 without enough CUDA devices, and if JAX or the JAX package was loaded.
+
+A cell of one chip runs in this process on ``cuda:0``.  A cell of several
+chips runs as one process per card (``ranks.py``), which meet in
+``build/portbench/ranks/``; this process hands on rank 0's result line
+and errors when every rank has exited 0.
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ def main() -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
+    if cell.chips > 1:
+        return several(cell, args)
     from portbench import harness
     result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                               "cuda:0", T_START)
@@ -67,6 +74,29 @@ def main() -> int:
     sys.stdout.flush()
     print("\n".join(harness.check_lines(result)), file=sys.stderr, flush=True)
     print(json.dumps(result), flush=True)
+    return 0
+
+
+def several(cell, args) -> int:
+    """Run ``cell`` as one rank per card and hand on rank 0's result."""
+    import signal
+    from portbench import ranks
+
+    def stop(signum, frame):            # end the ranks on the way out
+        sys.exit(128 + signum)
+    signal.signal(signal.SIGTERM, stop)
+    codes, out, err = ranks.launch(cell, args.seed, args.seconds,
+                                   bool(args.trace), "cuda", T_START,
+                                   ROOT / "build" / "portbench" / "ranks")
+    found = loaded_forbidden()
+    if found:
+        err += f"error: these modules were loaded: {found}\n"
+    sys.stderr.write(err)
+    sys.stderr.flush()
+    if any(codes) or found:
+        return 3
+    sys.stdout.write(out)
+    sys.stdout.flush()
     return 0
 
 

@@ -3,7 +3,8 @@
 A cell names a configuration and a traffic mix; each is a JSON file under
 ``configs/`` and ``traffic/``, the cell's limits are ``limits/<cell>.json``,
 the traffic's ``loop`` names ``loops/<loop>.py`` and each per-layer
-metric ``metrics/<name>.py``.  Nothing here imports torch.
+metric ``metrics/<name>.py``.  A cell of several chips takes its mesh
+from its traffic's ``"mesh"``.  Nothing here imports torch.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import dataclasses
 import hashlib
 import importlib.util
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -61,11 +63,28 @@ def resolve(name: str, bench: dict | None = None, here: Path = HERE) -> Cell:
     e2e = [m for m in bench["end_to_end"] if reports(m, name)]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if reports(m, name, names)]
+    traffic = load_json(here / "traffic" / f"{w['traffic']}.json")
+    fault = mesh_fault(traffic.get("mesh"), w["chips"])
+    if fault:
+        raise ValueError(f"{name}: {fault}")
     return Cell(name=name, chips=w["chips"],
                 config=load_json(here / "configs" / f"{w['config']}.json"),
-                traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
+                traffic=traffic,
                 limits=load_json(here / "limits" / f"{name}.json"),
                 end_to_end=e2e, per_layer=per_layer)
+
+
+def mesh_fault(mesh: dict | None, chips: int) -> str | None:
+    """Why a cell of ``chips`` chips cannot run on the ``mesh`` its traffic
+    names ({axis: extent}; none for one chip), or None: the extents are
+    positive whole numbers whose product is ``chips``."""
+    extents = list((mesh or {}).values())
+    if not all(isinstance(e, int) and e >= 1 for e in extents):
+        return f"mesh extents must be positive whole numbers: {mesh}"
+    if math.prod(extents) != chips:
+        return (f"the mesh {mesh or {}} holds {math.prod(extents)} rank(s), "
+                f"the cell asks for {chips} chip(s)")
+    return None
 
 
 def load_module(path: Path):

@@ -66,8 +66,9 @@ def test_only_float32_is_run():
                          "hbm_bytes_per_s"}
 
 
-def ev(name, s, e, dev):
-    return N(name=name, time_range=N(start=s, end=e), device_type=dev)
+def ev(name, s, e, dev, note=False):
+    return N(name=name, time_range=N(start=s, end=e), device_type=dev,
+             is_user_annotation=note)
 
 
 CPU, GPU = DeviceType.CPU, DeviceType.CUDA
@@ -75,7 +76,8 @@ TIMELINE = [
     ev(trace.WINDOW, 0, 100, CPU), ev(trace.WINDOW, 0, 100, GPU),
     ev("sm90_xmma_gemm_f32", 10, 30, GPU), ev("elementwise", 20, 40, GPU),
     ev("ssd_out_kernel", 60, 70, GPU), ev("before", -50, -10, GPU),
-    ev("aten::mm", 35, 65, CPU), ev("cudaDeviceSynchronize", 66, 100, CPU)]
+    ev("aten::mm", 35, 65, CPU), ev("cudaDeviceSynchronize", 66, 100, CPU),
+    ev("nccl:all_reduce", 80, 95, GPU, note=True)]
 
 
 def test_trace_union_gaps_and_own_spans():
@@ -93,21 +95,25 @@ def test_trace_union_gaps_and_own_spans():
 def reading(cell, **kw):
     c = spec.resolve(cell)
     return harness.Reading(cell, c.config, c.traffic, trace.summarize(TIMELINE),
-                           kw.get("iters", 1), kw.get("peak", PEAK))
+                           kw.get("iters", 1), kw.get("peak", PEAK),
+                           kw.get("chips", 1))
 
 
-@pytest.mark.parametrize("name,cell,expect", [
-    ("device_idle.score", "hybrid-mamba2-2.3b.score_b32_l2048", 60.0),
-    ("gemm_ms.score", "minicpm-2b.score_b24_l2048", 0.02),
+@pytest.mark.parametrize("name,cell,expect,chips", [
+    ("device_idle.score", "hybrid-mamba2-2.3b.score_b32_l2048", 60.0, 1),
+    ("gemm_ms.score", "minicpm-2b.score_b24_l2048", 0.02, 1),
     ("mfu.score", "minicpm-2b.score_b24_l2048",
-     100 * 286_411_664_130_048 / 100e-6 / 67e12),
+     100 * 286_411_664_130_048 / 100e-6 / 67e12, 1),
+    ("mfu.score", "minicpm-2b.score_b24_l2048",        # rank 0's window of 4
+     100 * 286_411_664_130_048 / 100e-6 / (4 * 67e12), 4),
     ("mfu.train", "minicpm-2b.train_b2_s2048",
-     100 * 3 * 23_867_638_677_504 / 100e-6 / 67e12),
+     100 * 3 * 23_867_638_677_504 / 100e-6 / 67e12, 1),
     ("ssd_scan_roofline", "hybrid-mamba2-2.3b.score_b32_l2048",
-     100 * 54 * 2_738_880_512 / 3.35e12 / 10e-6),
+     100 * 54 * 2_738_880_512 / 3.35e12 / 10e-6, 1),
 ])
-def test_readers_on_the_timeline(name, cell, expect):
-    assert spec.metric_module(name).read(reading(cell)) == pytest.approx(expect)
+def test_readers_on_the_timeline(name, cell, expect, chips):
+    assert spec.metric_module(name).read(reading(cell, chips=chips)) == \
+        pytest.approx(expect)
 
 
 @pytest.mark.parametrize("name,cell", [

@@ -19,7 +19,7 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 HARNESS = """
-from portbench import harness, spec, counts, trace, faults, sut
+from portbench import harness, spec, counts, trace, faults, sut, ranks
 for p in sorted((Path({root!r}) / "portbench" / "metrics").glob("*.py")):
     spec.load_module(p)
 for p in sorted((Path({root!r}) / "portbench" / "loops").glob("*.py")):

@@ -38,7 +38,7 @@ def test_names_units_and_entry_keys():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["name"] == f"{w['config']}.{w['traffic']}"
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         names += [w["name"], w["config"], w["traffic"]]
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert set(m) - {"workloads"} == (
@@ -50,6 +50,75 @@ def test_names_units_and_entry_keys():
     for group in ("configs", "workloads", "end_to_end", "per_layer"):
         listed = [e["name"] for e in BENCH[group]]
         assert len(listed) == len(set(listed))
+
+
+def chips_faults(workloads: list, mesh_of) -> list:
+    """Where ``workloads`` break the rule on chips: each cell asks for 1 or
+    4, at most max(1, ⌊cells / 4⌋) ask for 4, and a four-chip cell's mesh
+    (``mesh_of(cell)``, from its traffic) has extents whose product is 4."""
+    faults = [w["name"] for w in workloads if w["chips"] not in (1, 4)]
+    four = [w for w in workloads if w["chips"] == 4]
+    if len(four) > max(1, len(workloads) // 4):
+        faults.append(f"{len(four)} four-chip cells of {len(workloads)}")
+    faults += [w["name"] for w in four
+               if spec.mesh_fault(mesh_of(w), w["chips"])]
+    return faults
+
+
+def cells_with(*chips_and_meshes):
+    """The benchmark's cells and made-up ones of (chips, mesh)."""
+    cells = [dict(w, mesh=None) for w in BENCH["workloads"]]
+    cells += [{"name": f"x{i}.score", "chips": c, "mesh": m}
+              for i, (c, m) in enumerate(chips_and_meshes)]
+    return cells
+
+
+TP4 = {"data": 1, "model": 4}
+ONE = (1, None)
+
+
+@pytest.mark.parametrize("cells,ok", [
+    (cells_with(), True),
+    (cells_with((4, TP4)), True),
+    (cells_with((4, {"data": 2, "model": 2})), True),
+    (cells_with((4, TP4), ONE, ONE, ONE, (4, TP4)), True),
+    (cells_with((2, {"model": 2})), False),
+    (cells_with((4, TP4), (4, TP4)), False),
+    (cells_with((4, TP4), ONE, ONE, (4, TP4)), False),
+    (cells_with((4, {"data": 1, "model": 2})), False),
+    (cells_with((4, None)), False),
+])
+def test_chips_rule(cells, ok):
+    mesh = {w["name"]: w["mesh"] for w in cells}
+    for w in BENCH["workloads"]:
+        mesh[w["name"]] = spec.resolve(w["name"]).traffic.get("mesh")
+    assert (chips_faults(cells, lambda w: mesh[w["name"]]) == []) is ok
+
+
+@pytest.mark.parametrize("chips,mesh,ok", [
+    (1, None, True), (4, TP4, True), (4, None, False),
+    (4, {"data": 1, "model": 2}, False), (1, TP4, False),
+    (4, {"data": 0, "model": 4}, False)])
+def test_resolve_refuses_a_mesh_that_is_not_the_chips(tmp_path, chips, mesh,
+                                                       ok):
+    here = tmp_path / "portbench"
+    shutil.copytree(spec.HERE, here, ignore=shutil.ignore_patterns(
+        "__pycache__"))
+    traffic = spec.load_json(here / "traffic" / "score_b24_l2048.json")
+    if mesh is not None:
+        traffic["mesh"] = mesh
+    (here / "traffic" / "score_x.json").write_text(json.dumps(traffic))
+    cell = "minicpm-2b.score_x"
+    (here / "limits" / f"{cell}.json").write_text('{"logits_gap": 1e-4}')
+    bench = json.loads(json.dumps(BENCH))
+    bench["workloads"].append({"name": cell, "config": "minicpm-2b",
+                               "traffic": "score_x", "chips": chips,
+                               "why": "x"})
+    if ok:
+        assert spec.resolve(cell, bench, here).chips == chips
+    else:
+        with pytest.raises(ValueError, match="mesh"):
+            spec.resolve(cell, bench, here)
 
 
 def test_bounds_and_sources():

@@ -4,9 +4,11 @@ window, reduced to what the per-layer readers and the breakdown need.
 The reduction copies ``tools/profile_torch_train.py``'s ``device_profile``
 and ``kind``: device busy time is the union of every device activity's
 interval, and a matrix product is a kernel whose name holds gemm, cutlass
-or xmma.  The stretch is marked on the host by a ``record_function``
-span (`WINDOW`) that ends after a device synchronise, so the span holds
-all of its device work.
+or xmma.  A host range that the profiler mirrors on the device as an
+annotation (``nccl:all_reduce`` beside NCCL's own kernel) is no activity.
+The stretch is marked on the host by a ``record_function`` span
+(`WINDOW`) that ends after a device synchronise, so the span holds all of
+its device work.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ def summarize(events) -> dict:
         if e.name.startswith(OWN):
             continue
         if e.device_type == DeviceType.CUDA:
-            dev.append((max(s, w0), min(t, w1), e.name))
+            if not getattr(e, "is_user_annotation", False):
+                dev.append((max(s, w0), min(t, w1), e.name))
         else:
             host.append((s, t, e.name))
     by_name: dict = {}
